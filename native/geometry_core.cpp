@@ -9,7 +9,7 @@
 // adjacency slot ordering (float accumulation order may differ in the last
 // ulp) at native speed for large meshes.
 //
-// Build: see native/Makefile (produces libsu2tpu_geom.so).
+// Build: see native/Makefile (produces libsu2_geom.so).
 
 #include <cmath>
 #include <cstdint>
@@ -66,7 +66,7 @@ extern "C" {
 //
 // Orientation fixes (interior CCW, boundary handled in Python) are applied
 // to a local copy of elem_nodes exactly like Check_IntElem_Orientation.
-int64_t su2tpu_build_dual_2d(int64_t npoint, const double* coords,
+int64_t su2geom_build_dual_2d(int64_t npoint, const double* coords,
                              int64_t nelem, const int32_t* elem_types,
                              const int64_t* elem_nodes_in,
                              int64_t* edges_out, double* edge_normal_out,
@@ -165,7 +165,7 @@ int64_t su2tpu_build_dual_2d(int64_t npoint, const double* coords,
 // Node->edge adjacency (gather-based scatter tables).
 // Outputs: node_edges (npoint*maxdeg, pad=nedge), node_sign, node_nbrs.
 // Returns max degree found, or -1 if it exceeds maxdeg.
-int64_t su2tpu_adjacency(int64_t npoint, int64_t nedge, const int64_t* edges,
+int64_t su2geom_adjacency(int64_t npoint, int64_t nedge, const int64_t* edges,
                          int64_t maxdeg, int64_t* node_edges,
                          double* node_sign, int64_t* node_nbrs) {
   for (int64_t p = 0; p < npoint; ++p) {

@@ -1,8 +1,7 @@
 """CLI: ``python -m su2_tpu <config.cfg> [niter]`` (SU2_CFD equivalent).
 
 ``SU2_TPU_PLATFORM=cpu`` forces the JAX platform before backend init —
-useful for CPU verification runs on hosts whose site config pins
-JAX_PLATFORMS to the TPU plugin.
+useful for CPU verification runs on a host with an accelerator.
 """
 
 import os

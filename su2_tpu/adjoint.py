@@ -1,6 +1,6 @@
 """Discrete adjoint via JAX reverse-mode AD.
 
-TPU-native replacement for the reference's CoDiPack-taped discrete adjoint
+Data-parallel replacement for the reference's CoDiPack-taped discrete adjoint
 (SU2's AD datatypes in Common/include/datatypes + the discrete adjoint solver
 SU2_CFD/src/solver_adjoint_discrete.cpp and the SU2_DOT projection tool):
 instead of taping C++ operations, the pseudo-time fixed point
@@ -279,22 +279,18 @@ def make_rans_fixed_point_step(sim, cfl_scale: float = 1.0):
                 omega_turb=q[:, 1], sigma_k_edge=sigma_k_edge,
                 want_bc_states=True)
             u2 = ns.enforce_wall_velocity(lay, u, wall_mask)
-            # allow_pallas=False: the pure-XLA multicolor-SGS path (the
-            # pallas stencil sweeps' pltpu.roll has no AD rule); same
-            # preconditioner class as the production solver
-            mv, pc, _, _ = blockcsr.make_solver_ops(
-                mesh, jac, cfg.linear_solver_prec, color_masks,
-                linear_iter=cfg.linear_solver_iter, allow_pallas=False)
+            # same preconditioner class as the production solver
+            mv, pc = blockcsr.make_solver_ops(
+                mesh, jac, cfg.linear_solver_prec, color_masks)
             sol, _, _ = krylov.fgmres(
                 mv, pc, -res, max_iter=cfg.linear_solver_iter,
                 tol=cfg.linear_solver_error)
             u_new = jnp.clip(u2 + cfg.relaxation_factor_flow * sol,
                              lower, upper)
         else:
-            res, wall_mask, _, _, lams, flow_fb = ns.ns_assemble(
+            res, wall_mask, _, _, flow_fb = ns.ns_assemble(
                 lib, lay, mesh, prm, bcs, v, turb=turb, omega_turb=q[:, 1],
-                sigma_k_edge=sigma_k_edge, want_lambdas=True,
-                want_bc_states=True)
+                sigma_k_edge=sigma_k_edge, want_bc_states=True)
             u2 = ns.enforce_wall_velocity(lay, u, wall_mask)
             u_new, _, _ = es.explicit_euler_update(
                 lay, mesh, u2, res, dt, lower, upper)
@@ -307,9 +303,8 @@ def make_rans_fixed_point_step(sim, cfl_scale: float = 1.0):
         strain2, _ = sst.strain_and_vorticity(lay, grad_new)
         mu_new = ns.viscous.node_transport(lib, lay, v_new).mu
         gm1 = st.dpdu(lib, lay, v_new)[:, lay.RHOE]
-        scfg_adj = dc_replace(scfg, allow_pallas=False)
         q_new, _, _ = sst.sst_step(
-            lay, mesh, scfg_adj, bcs, q, v_new, grad_new, mu_new, mu_t,
+            lay, mesh, scfg, bcs, q, v_new, grad_new, mu_new, mu_t,
             strain2, dist, rho, dt, sim.kine_inf, sim.omega_inf,
             lib=lib, dpdu_e=gm1, tke_inf=prm.tke_inf, flow_fb=flow_fb)
         return u_new, q_new

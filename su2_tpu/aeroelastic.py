@@ -8,7 +8,7 @@ formulation) + CSurfaceMovement::AeroelasticDeform
 freestream override (solver_direct_mean.cpp:3606-3640).
 
 The structural problem is a 2x2 modal system solved on the HOST (it is
-four scalars); the aerodynamic coupling runs the existing TPU ALE
+four scalars); the aerodynamic coupling runs the existing ALE
 machinery: at each physical step the whole mesh moves rigidly by the
 accumulated (plunge, pitch) about the elastic axis — rigid motion keeps
 the dual volumes exact and the analytic grid velocities satisfy the GCL,

@@ -46,7 +46,7 @@ def spline_eval(x0: float, h: float, n: int, y: jnp.ndarray, y2: jnp.ndarray,
 
     The equispaced lookup klo = (t - x0)/h + 1 matches GetSpline
     (spline.cpp:66-74); t is clamped into the table domain (the reference
-    throws std::out_of_range and falls back to bisection — on TPU we clamp
+    throws std::out_of_range and falls back to bisection — here we clamp
     and let the caller's Tmin/Tmax clipping handle out-of-domain states).
     """
     tc = jnp.clip(t, x0, x0 + (n - 1) * h)

@@ -6,7 +6,7 @@ Common/src/grid_movement_structure.cpp — CSurfaceMovement::SetHicksHenne
 The reference propagates surface displacements with a linear-elasticity FEM
 solve; here the volume motion uses the classical edge-spring analogy
 (stiffness 1/len^2) solved matrix-free with Jacobi-preconditioned CG — the
-same Dirichlet data and a TPU-parallel operator.  Simplifications vs the
+same Dirichlet data and a data-parallel operator.  Simplifications vs the
 reference's Hicks-Henne: deformation applied along +y (2D airfoil
 convention), chord computed from the marker extent, no AoA rotation.
 """

@@ -5,7 +5,7 @@ fluid_model_pig.cpp, fluid_model_pvdw.cpp, fluid_model_ppr.cpp) used by the
 standard compressible solver with FLUID_MODEL= IDEAL_GAS / VW_GAS / PR_GAS.
 
 All state calls are vectorized over node batches (rho, e are arrays), and
-the cubic-EoS Newton iterations run a fixed masked budget — the TPU form of
+the cubic-EoS Newton iterations run a fixed masked budget — the batched form of
 the reference's do/while loops.  The reactive path uses the chemistry
 library instead; these models back the single-species solvers and are unit
 consistency-tested against their own inverse maps.

@@ -3,7 +3,7 @@
 Reference capability: CADTPointsOnlyClass (Common/src/adt_structure.cpp:490)
 used for nearest-neighbor queries in wall distances and interpolation.
 Host-side NumPy build + batched queries; for large query sets the chunked
-brute-force in turbulence/sst.py::wall_distance remains the TPU path — this
+turbulence/sst.py::wall_distance uses a k-d tree query — this
 tree serves host-side setup (interpolation donors, normal neighbors).
 """
 

@@ -4,7 +4,7 @@ The combinatorial topology (edges, adjacency, marker membership) is frozen on
 the host; volumes, dual-face normals and boundary vertex normals are then
 re-evaluated in JAX as pure functions of the node coordinates.  This is what
 makes mesh sensitivities d(residual)/d(coords) available to `jax.vjp` — the
-TPU-native replacement for the reference's CoDiPack mesh-sensitivity taping
+Data-parallel replacement for the reference's CoDiPack mesh-sensitivity taping
 (SU2_CFD_AD / SU2_DOT capability; geometry formulas identical to
 geometry/dual_grid.py, i.e. Common/src/geometry_structure.cpp:10457 and the
 2D boundary-vertex loop at :9645).

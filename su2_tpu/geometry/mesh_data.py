@@ -3,7 +3,7 @@
 Everything here is shape-static so the whole residual evaluation jits once.
 Edge->node scatter is gather-based: each node stores its (padded) incident
 edge list and signs, so residual accumulation is a deterministic gather+sum —
-no atomics, no data-dependent shapes (TPU-friendly replacement for the
+no atomics, no data-dependent shapes (accelerator-friendly replacement for the
 reference's LinSysRes.AddBlock/SubtractBlock edge loops).
 """
 
@@ -43,8 +43,7 @@ class MeshArrays:
     node_edges_sel: jax.Array = None
     # slot-major flattened variants (D*nP,): gathers produce (D*nP, k) whose
     # per-slot reduction is CONTIGUOUS row slices g[d*nP:(d+1)*nP] — the
-    # (nP, D, k) form forces an (expensive) relayout reshape before the
-    # axis-1 reduce on TPU (~0.9 ms per scatter at 142k cells).
+    # (nP, D, k) form forces a relayout reshape before the axis-1 reduce.
     node_edges_t: jax.Array = None   # (D*nP,) int32 = node_edges.T.ravel()
     node_sign_t: jax.Array = None    # (D*nP,)
     node_nbrs_t: jax.Array = None    # (D*nP,) int32 = node_nbrs.T.ravel()
@@ -68,9 +67,9 @@ class MeshArrays:
     stencil_pvec: jax.Array = None
     # family-major edge geometry over POSITIVE offsets: entry [k, p] is the
     # (p, p+fam_offsets[k]) edge's area normal / node-to-node vector, zero
-    # where the edge is absent.  Lets the fused edge kernel read endpoint
-    # states as rolls of the node matrix and write the residual scatter as
-    # roll-subtracts (pallas/edge_fused.py family path).
+    # where the edge is absent.  Lets the family-major assembly read
+    # endpoint states as rolls of the node matrix and write the residual
+    # scatter as roll-subtracts (solvers/ns.py).
     fam_normal: jax.Array = None        # (Kh, nP, d)
     fam_evec: jax.Array = None          # (Kh, nP, d)
     fam_offsets: tuple = None           # Kh positive offsets
@@ -82,9 +81,8 @@ class MeshArrays:
     pg_rot: jax.Array = None            # (nG, d, d) vector rotation
     pg_start: int = None
     # number of devices the node axis is sharded over (parallel/sharding.py).
-    # >1 keeps the roll/family XLA paths (GSPMD partitions rolls into
-    # neighbor collective-permutes — the halo exchange) but disables the
-    # single-chip pallas kernels, which cannot be GSPMD-partitioned.
+    # >1 selects the roll/family paths (GSPMD partitions rolls into
+    # neighbor collective-permutes — the halo exchange).
     n_shards: int = 1
 
     def _slot_slices(self, g):
@@ -159,8 +157,8 @@ class MeshArrays:
         i-node and val_j[e] where p is its j-node.
 
         The gather-based replacement for `x.at[i].add(a); x.at[j].add(b)` —
-        scatter-adds with duplicate indices serialize inside fused TPU
-        programs; this is a pure gather+sum.
+        scatter-adds with duplicate indices serialize (or need atomics)
+        inside fused programs; this is a pure gather+sum.
         """
         pad = jnp.zeros((1,) + val_i.shape[1:], dtype=val_i.dtype)
         if self.node_edges_t is None:

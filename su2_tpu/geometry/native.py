@@ -1,4 +1,4 @@
-"""ctypes binding for the native geometry core (native/libsu2tpu_geom.so).
+"""ctypes binding for the native geometry core (native/libsu2_geom.so).
 
 Falls back to None if the library hasn't been built; callers use the Python
 builder then.  Build with `make -C native`.
@@ -22,18 +22,18 @@ def load():
     _TRIED = True
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))), "native",
-        "libsu2tpu_geom.so")
+        "libsu2_geom.so")
     if not os.path.exists(path):
         return None
     lib = ctypes.CDLL(path)
-    lib.su2tpu_build_dual_2d.restype = ctypes.c_int64
-    lib.su2tpu_build_dual_2d.argtypes = [
+    lib.su2geom_build_dual_2d.restype = ctypes.c_int64
+    lib.su2geom_build_dual_2d.argtypes = [
         ctypes.c_int64, ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_double),
         ctypes.POINTER(ctypes.c_double), ctypes.c_int64]
-    lib.su2tpu_adjacency.restype = ctypes.c_int64
-    lib.su2tpu_adjacency.argtypes = [
+    lib.su2geom_adjacency.restype = ctypes.c_int64
+    lib.su2geom_adjacency.argtypes = [
         ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
         ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64)]
@@ -62,7 +62,7 @@ def build_dual_2d(coords: np.ndarray, elem_types: np.ndarray,
     edges = np.empty((max_edges, 2), dtype=np.int64)
     normals = np.empty((max_edges, 2), dtype=np.float64)
     volume = np.empty(npoint, dtype=np.float64)
-    nedge = lib.su2tpu_build_dual_2d(
+    nedge = lib.su2geom_build_dual_2d(
         npoint, _ptr(coords, ctypes.c_double), nelem,
         _ptr(et, ctypes.c_int32), _ptr(en, ctypes.c_int64),
         _ptr(edges, ctypes.c_int64), _ptr(normals, ctypes.c_double),
@@ -81,7 +81,7 @@ def adjacency(npoint: int, edges: np.ndarray, maxdeg: int):
     node_edges = np.empty((npoint, maxdeg), dtype=np.int64)
     node_sign = np.empty((npoint, maxdeg), dtype=np.float64)
     node_nbrs = np.empty((npoint, maxdeg), dtype=np.int64)
-    got = lib.su2tpu_adjacency(
+    got = lib.su2geom_adjacency(
         npoint, nedge, _ptr(edges, ctypes.c_int64), maxdeg,
         _ptr(node_edges, ctypes.c_int64), _ptr(node_sign, ctypes.c_double),
         _ptr(node_nbrs, ctypes.c_int64))

@@ -4,7 +4,7 @@ Reference capability: MARKER_PERIODIC + SU2_MSH's periodic ghost-layer setup
 (CPhysicalGeometry periodic donor search, Common/src/geometry_structure.cpp;
 solver-side rotation/translation in the Set_MPI_* halo exchanges).
 
-TPU-native design, translation: instead of ghost layers exchanged every
+Design, translation: instead of ghost layers exchanged every
 iteration, the paired boundary vertices are merged into single dual CVs at
 setup — edges crossing the cut are re-glued, volumes summed, and the
 periodic markers disappear.  Periodicity then costs nothing at runtime and

@@ -1,6 +1,6 @@
 """Static-stencil discovery: turn unstructured sparsity into lane shifts.
 
-TPU-native replacement for the index-gather half of the reference's
+Data-parallel replacement for the index-gather half of the reference's
 block-CSR machinery (Common/src/matrix_structure.cpp): when the mesh's
 node numbering places every neighbor at one of a few constant index
 offsets (any logically-structured mesh, once ordered), the sparse
@@ -9,7 +9,7 @@ neighbor product  y[p] += B[p,q] x[q]  becomes
     y += sum_k  M_k * roll(x, -o_k)
 
 with K static offsets o_k — no gathers, no scatter, pure elementwise
-work that XLA fuses and a Pallas kernel turns into VPU lane rotates.
+work that XLA fuses.
 
 Discovery runs on the host at setup:
 

@@ -11,7 +11,7 @@ is exactly FVM, replicated here.  Gust shapes: TOP_HAT, SINE,
 ONE_M_COSINE, EOG (VORTEX needs the reference's vortex distribution
 input file and is not shipped with any case; it raises).
 
-TPU-native: the gust field is an analytic function of (coords, t)
+Design: the gust field is an analytic function of (coords, t)
 evaluated inside the jitted inner step — the unsteady loop reuses the
 rigid-motion ALE machinery with grid_vel = -gust(x, t) as a runtime
 argument, so physical steps never retrace."""

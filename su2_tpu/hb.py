@@ -10,7 +10,7 @@ operator
 
 and each instance solves  R(u_i) + Vol * sum_j D_ij u_j = 0.
 
-TPU-first design: the reference runs N separate zone containers in a host
+Design: the reference runs N separate zone containers in a host
 loop; here the instances are a BATCH AXIS — one stacked state
 u (N, nP, nvar), the per-instance residual vmapped over the axis, and the
 spectral coupling a single einsum.  For moving-grid problems each instance
@@ -58,7 +58,7 @@ class HBDriver:
     Vol * sum_j D_ij (rho k, rho w)_j to the turbulence residual — the
     reference's explicit-source semantics (no Jacobian contribution,
     solver_direct_mean.cpp:5187, solver_direct_turbulent.cpp:1590).
-    Instances ride a vmapped batch axis (allow_pallas off inside vmap).
+    Instances ride a vmapped batch axis.
 
     sim: a Simulation configured for the case (and, if moving,
     GRID_MOVEMENT_KIND= RIGID_MOTION).  period/omegas: HB_PERIOD and
@@ -172,12 +172,11 @@ class HBDriver:
         if turb_on:
             from su2_tpu.turbulence import sst
             assert cfg.kind_turb_model == "SST", "HB turbulence: SST only"
-            scfg = _dc.replace(sim.scfg, allow_pallas=False,
-                               color_masks=None)
+            scfg = _dc.replace(sim.scfg, color_masks=None)
 
         def strip(mesh):
-            # instance meshes drop the static-stencil fast paths: edge
-            # layouts are vmappable with no pallas kernels inside vmap
+            # instance meshes drop the static-stencil fast paths: the
+            # edge layouts vmap over instances
             return _dc.replace(
                 mesh, gg_snormal=None, wls_coeff=None, stencil_pvec=None,
                 fam_normal=None, fam_evec=None, fam_offsets=None,
@@ -251,12 +250,11 @@ class HBDriver:
                 sigma_k_edge=sigma_k_edge, want_bc_states=True)
             res = res + hb_u * mesh.volume[:, None]
             u2w = ns.enforce_wall_velocity(lay, u2, wall_mask)
-            mv, pc, pm, _ = blockcsr.make_solver_ops(
-                mesh, jac, cfg.linear_solver_prec, sim_.color_masks,
-                linear_iter=cfg.linear_solver_iter, allow_pallas=False)
+            mv, pc = blockcsr.make_solver_ops(
+                mesh, jac, cfg.linear_solver_prec, sim_.color_masks)
             sol, _, _ = krylov.fgmres(
                 mv, pc, -res, max_iter=cfg.linear_solver_iter,
-                tol=cfg.linear_solver_error, precond_matvec=pm)
+                tol=cfg.linear_solver_error)
             u_new = jnp.clip(u2w + cfg.relaxation_factor_flow * sol,
                              lower, upper)
             u_new = ns.enforce_wall_velocity(lay, u_new, wall_mask)
@@ -322,7 +320,7 @@ class HBDriver:
                 u_all, q_all, t_all, rms = self._step_implicit(
                     u_all, q_all, t_all)
                 if it % 50 == 0 or it == n_iter - 1:
-                    lr = np.log10(np.maximum(np.asarray(rms), 1e-300))
+                    lr = np.log10(np.maximum(np.asarray(rms, np.float64), 1e-300))
                     hist.append(lr)
                     if not quiet:
                         print(f"HB iter {it:5d}  Res[Rho]: "
@@ -333,7 +331,7 @@ class HBDriver:
         for it in range(n_iter):
             u_all, t_all, rms = self._step(u_all, t_all)
             if it % 50 == 0 or it == n_iter - 1:
-                lr = np.log10(np.maximum(np.asarray(rms), 1e-300))
+                lr = np.log10(np.maximum(np.asarray(rms, np.float64), 1e-300))
                 hist.append(lr)
                 if not quiet:
                     print(f"HB iter {it:5d}  Res[Rho]: "

@@ -209,7 +209,7 @@ def write_paraview_volume(path: str, raw_mesh, fields: dict) -> None:
     elems = raw_mesh.elem_nodes
     with open(path, "w") as f:
         f.write("# vtk DataFile Version 3.0\n")
-        f.write("SU2-TPU volume solution\nASCII\nDATASET UNSTRUCTURED_GRID\n")
+        f.write("su2_tpu volume solution\nASCII\nDATASET UNSTRUCTURED_GRID\n")
         f.write(f"POINTS {n} double\n")
         for i in range(n):
             z = coords[i, 2] if coords.shape[1] > 2 else 0.0
@@ -376,7 +376,7 @@ def write_forces_breakdown(path: str, cfg, forces: dict,
     totals["CL/CD"] = cl / cd if cd else 0.0
     with open(path, "w") as f:
         f.write("-" * 73 + "\n")
-        f.write("|  su2_tpu: TPU-native turbulent reactive-flow solver"
+        f.write("|  su2_tpu: turbulent reactive-flow solver"
                 " (SU2-compatible)  |\n")
         f.write("-" * 73 + "\n\n")
         f.write("Problem definition:\n\n")

@@ -1,6 +1,6 @@
 """Block-sparse Jacobian in edge-coordinate form + preconditioners.
 
-TPU-native replacement for CSysMatrix (reference:
+Device-array replacement for CSysMatrix (reference:
 Common/src/matrix_structure.cpp — block-CSR with AddBlock/SubtractBlock,
 Jacobi/ILU0/LU-SGS preconditioners).  Instead of CSR, blocks live in the
 natural mesh layout:
@@ -11,7 +11,7 @@ natural mesh layout:
 
 The matvec gathers neighbor values through the padded node->edge adjacency —
 deterministic, no atomics.  LU-SGS is inherently sequential over an ordering,
-so the TPU preconditioner is block-Jacobi (exact batched block inverse)
+so the preconditioner here is block-Jacobi (exact batched block inverse)
 optionally wrapped in a few symmetric block-Gauss-Seidel-like sweeps done
 Jacobi-style; outer FGMRES tolerance governs accuracy, matching the
 reference's convergence contract (linear tol, outer residual history).
@@ -53,35 +53,6 @@ class FamilyJacobian:
 
 jax.tree_util.register_dataclass(
     FamilyJacobian, data_fields=["diag", "off_ij", "off_ji"], meta_fields=[])
-
-
-@dataclass(frozen=True)
-class StencilJacobianT:
-    """Block Jacobian with the off-diagonal blocks already in the
-    static-stencil LANE layout (pallas/stencil_solve order): sel_t row
-    k*v*v + a*v + b, lane p is entry (a, b) of the row-p/column-(p +
-    stencil_offsets[k]) block (zero where the edge is absent).  Produced by
-    the fused implicit edge kernel (pallas/edge_fused.py) — feeds the
-    stencil SGS/matvec kernels with NO relayout copies."""
-    diag: jax.Array     # (nP, v, v)
-    sel_t: jax.Array    # (K*v*v, nP)
-
-
-jax.tree_util.register_dataclass(
-    StencilJacobianT, data_fields=["diag", "sel_t"], meta_fields=[])
-
-
-def sel_t_to_family(mesh: MeshArrays, sel_t: jax.Array, v: int):
-    """(off_ij, off_ji) family-major (Kh*nP, v, v) blocks from the lane
-    layout (inverse of the fused kernel's by_off packing)."""
-    n = mesh.npoint
-    k = len(mesh.stencil_offsets)
-    sel = sel_t.reshape(k, v, v, n).transpose(0, 3, 1, 2)   # (K, nP, v, v)
-    pos = {o: i for i, o in enumerate(mesh.stencil_offsets)}
-    oij = jnp.concatenate([sel[pos[o]] for o in mesh.fam_offsets], axis=0)
-    oji = jnp.concatenate([jnp.roll(sel[pos[-o]], -o, axis=0)
-                           for o in mesh.fam_offsets], axis=0)
-    return oij, oji
 
 
 def family_sel(mesh: MeshArrays, jac: FamilyJacobian) -> jax.Array:
@@ -132,8 +103,8 @@ def block_diag_inv(diag: jax.Array) -> jax.Array:
     """Batched inverse of (nP, v, v) diagonal blocks.
 
     Via the vectorized Gauss-Jordan solver against identity —
-    jnp.linalg.inv lowers to per-matrix LU on TPU (slow for huge batches of
-    small blocks, same pathology as linalg.solve)."""
+    jnp.linalg.inv lowers to per-matrix LU (slow for huge batches of small
+    blocks, same pathology as linalg.solve)."""
     from su2_tpu.linalg.smallsolve import gauss_solve
 
     jac = BlockJacobian(diag=diag, off_ij=diag, off_ji=diag)
@@ -173,7 +144,7 @@ def sgs_like_apply(mesh: MeshArrays, jac: BlockJacobian, dinv: jax.Array,
 
 
 # --------------------------------------------------------------------------
-# Multicolor symmetric block-Gauss-Seidel (the TPU form of LU_SGS)
+# Multicolor symmetric block-Gauss-Seidel (the data-parallel form of LU_SGS)
 # --------------------------------------------------------------------------
 
 def greedy_coloring(node_nbrs) -> "np.ndarray":
@@ -274,19 +245,11 @@ def multicolor_sgs_apply(mesh: MeshArrays, jac: BlockJacobian,
     return z
 
 
-def make_solver_ops(mesh: MeshArrays, jac: BlockJacobian,
-                    kind: str = "JACOBI", color_masks=None, linelets=None,
-                    allow_pallas: bool = True,
-                    linear_iter: int = 5):
-    """(matvec, precond, precond_matvec|None, solve|None) for a Krylov
-    solve.
-
-    On static-stencil meshes with small blocks the SGS-class preconditioner
-    and the matvec run as single fused pallas kernels (VMEM-resident sweep,
-    pallas/stencil_solve.py); precond_matvec computes (z, A z) in one launch
-    for FGMRES, and `solve(b, max_iter, tol)` runs the WHOLE FGMRES cycle
-    as one launch when the working set fits VMEM (stencil_solve._fgmres_call).
-    Elsewhere this is the gather-based XLA path.
+def make_solver_ops(mesh: MeshArrays, jac, kind: str = "JACOBI",
+                    color_masks=None, linelets=None):
+    """(matvec, precond) closures for a Krylov solve of a BlockJacobian or
+    FamilyJacobian system: the multicolor SGS sweep for the LU_SGS class,
+    block Jacobi otherwise.
 
     linelets: (nL, Lmax) host index matrix from linelet.build_linelets —
     with kind == "LINELET" enables the true block-Thomas line
@@ -299,9 +262,6 @@ def make_solver_ops(mesh: MeshArrays, jac: BlockJacobian,
         # UNDER-CONVERGED solves (max_iter hit before tol) to the
         # preconditioner ordering.  Env knob: SU2_TPU_SEQ_SGS_FLOW=1.
         from su2_tpu.linalg import seq_sgs
-        if isinstance(jac, StencilJacobianT):
-            oij, oji = sel_t_to_family(mesh, jac.sel_t, jac.diag.shape[-1])
-            jac = FamilyJacobian(diag=jac.diag, off_ij=oij, off_ji=oji)
         if isinstance(jac, FamilyJacobian):
             sel = family_sel(mesh, jac)
             mv = lambda x: _bmv(jac.diag, x) + _offdiag_apply(mesh, sel, x)
@@ -312,38 +272,28 @@ def make_solver_ops(mesh: MeshArrays, jac: BlockJacobian,
             mv = lambda x: matvec(mesh, jac, x, sel)
             pce = seq_sgs.edge_preconditioner(mesh, jac.diag.shape[-1])
             pc = lambda r: pce(jac.diag, jac.off_ij, jac.off_ji, r)
-        return mv, pc, None, None
+        return mv, pc
     if kind == "LU_SGS_WAVE":
-        # TPU-resident sequential-equivalent LU-SGS (wavefront levels in
+        # device-resident sequential-equivalent LU-SGS (wavefront levels in
         # natural order, linalg/wavefront.py) — the device-side form of
         # LU_SGS_SEQ: same sweep semantics, no host callback
         from su2_tpu.linalg import wavefront
         if mesh.stencil_offsets is None:
             raise ValueError("LU_SGS_WAVE needs a structured-ordered mesh "
                              "(stencil offsets)")
-        if isinstance(jac, StencilJacobianT):
-            v = jac.diag.shape[-1]
-            n = mesh.npoint
-            k = len(mesh.stencil_offsets)
-            sel = jac.sel_t.reshape(k, v, v, n).transpose(0, 3, 1, 2)
-            diag = jac.diag
-        elif isinstance(jac, FamilyJacobian):
+        if isinstance(jac, FamilyJacobian):
             sel = family_sel(mesh, jac)
-            diag = jac.diag
         else:
             if mesh.stencil_sel is None:
                 raise ValueError("LU_SGS_WAVE: stencil_sel unavailable")
             sel = gather_offdiag(mesh, jac)
-            diag = jac.diag
+        diag = jac.diag
         mv = lambda x: _bmv(diag, x) + _offdiag_apply(mesh, sel, x)
         pcw = wavefront.make_wavefront_pc(mesh, diag.shape[-1])
         pc = lambda r: pcw(diag, sel, r)
-        return mv, pc, None, None
+        return mv, pc
     if kind == "LINELET" and linelets is not None:
         from su2_tpu.linalg import linelet as ll
-        if isinstance(jac, StencilJacobianT):
-            oij, oji = sel_t_to_family(mesh, jac.sel_t, jac.diag.shape[-1])
-            jac = FamilyJacobian(diag=jac.diag, off_ij=oij, off_ji=oji)
         fam = isinstance(jac, FamilyJacobian)
         dinv = block_diag_inv(jac.diag)
         pc = ll.make_linelet_apply(mesh, linelets, jac.diag, jac.off_ij,
@@ -354,45 +304,12 @@ def make_solver_ops(mesh: MeshArrays, jac: BlockJacobian,
         else:
             sel = gather_offdiag(mesh, jac)
             mv = lambda x: matvec(mesh, jac, x, sel)
-        return mv, pc, None, None
-    if isinstance(jac, StencilJacobianT):
-        return make_solver_ops_stencil_t(mesh, jac.diag, jac.sel_t,
-                                         kind, color_masks, linear_iter,
-                                         allow_pallas=allow_pallas)
+        return mv, pc
     if isinstance(jac, FamilyJacobian):
         return make_solver_ops_fam(mesh, jac.diag, family_sel(mesh, jac),
-                                   kind, color_masks, linear_iter,
-                                   allow_pallas=allow_pallas)
+                                   kind, color_masks)
     dinv = block_jacobi_factor(jac)
-    v = jac.diag.shape[-1]
     sgs = kind in ("LU_SGS", "ILU0", "LINELET") and color_masks is not None
-    if sgs and mesh.stencil_sel is not None and allow_pallas:
-        from su2_tpu.pallas import stencil_solve as stks
-        if stks.supported(mesh, v, jac.diag.dtype, len(color_masks)):
-            sel = gather_offdiag(mesh, jac)
-            ops = stks.StencilSolveOps(mesh, sel, dinv, jac.diag,
-                                       color_masks)
-            return ops.matvec, ops.precond, ops.precond_matvec, \
-                _fused_solve(stks, ops, mesh, v, jac.diag.dtype,
-                             len(color_masks), linear_iter)
-        if (jac.diag.dtype == jnp.float32
-                and stks.supported(mesh, v, jnp.bfloat16, len(color_masks))):
-            # blocks too wide for an f32 VMEM-resident sweep: run the
-            # preconditioner (quality-only) from bf16 blocks in one
-            # launch; the Krylov matvec keeps the f32 blocks so the
-            # linear tolerance contract is unchanged
-            sel = gather_offdiag(mesh, jac)
-            ops = stks.StencilSolveOps(mesh, sel, dinv, jac.diag,
-                                       color_masks,
-                                       sel_dtype=jnp.bfloat16,
-                                       m=linear_iter)
-            mv = lambda x: matvec(mesh, jac, x, sel)
-            return mv, ops.precond, _mixed_pm(ops), _mixed_solve(ops)
-        sel = gather_offdiag(mesh, jac)
-        ops_t = _tiled_tier(mesh, sel, dinv, jac.diag, color_masks, False)
-        if ops_t is not None:
-            mv = lambda x: matvec(mesh, jac, x, sel)
-            return mv, ops_t.precond, ops_t.precond_matvec, None
     sel = gather_offdiag(mesh, jac)
     mv = lambda x: matvec(mesh, jac, x, sel)
     if sgs:
@@ -400,78 +317,12 @@ def make_solver_ops(mesh: MeshArrays, jac: BlockJacobian,
                                             offdiag=sel)
     else:
         pc = lambda r: block_jacobi_apply(dinv, r)
-    return mv, pc, None, None
-
-
-def _fgmres_off():
-    import os
-    return bool(os.environ.get("SU2_TPU_FUSED_FGMRES_OFF"))
-
-
-def _fused_solve(stks, ops, mesh, v, dtype, ncolor, m):
-    """solve(b, max_iter, tol) bound to the one-launch FGMRES kernel when
-    its VMEM working set fits AT the caller's Krylov budget m, else None
-    (caller falls back to the XLA Krylov loop over precond_matvec)."""
-    if _fgmres_off() or not stks.fgmres_supported(mesh, v, dtype, ncolor,
-                                                  m):
-        return None
-
-    def solve(b, max_iter, tol):
-        return ops.fgmres(b, max_iter, tol)
-    return solve
-
-
-def _mixed_solve(ops):
-    """Mixed-tier one-launch FGMRES (bf16 sweep + f32 matvec) when it fits
-    VMEM and the size cap, else None."""
-    if not ops.fgmres_mixed_ok or _fgmres_off():
-        return None
-
-    def solve(b, max_iter, tol):
-        return ops.fgmres_mixed(b, max_iter, tol)
-    return solve
-
-
-def _mixed_pm(ops):
-    """Per-iteration mixed (z, A z) kernel for the XLA Krylov loop when the
-    f32 blocks are resident, else None."""
-    if ops.sel_f32_t is None or _fgmres_off():
-        return None
-    return ops.precond_matvec_mixed
-
-
-def _tiled_tier(mesh, sel, dinv, diag, color_masks, sel_is_t: bool):
-    """Round-4 streaming tier: fields past every VMEM-resident gate stream
-    through the tiled mixed sweep+matvec kernels (bf16 sweep blocks, f32
-    matvec blocks — the same precision contract as the resident mixed
-    tier).  Returns a TiledStencilOps or None."""
-    if diag.dtype != jnp.float32 or _fgmres_off():
-        return None
-    from su2_tpu.pallas import stencil_solve as stks
-    v = diag.shape[-1]
-    if mesh.n_shards > 1:
-        # round-5: shard_map'd tiled sweeps (ppermute halo slabs) — the
-        # tiled tier now composes with multi-chip
-        plan = stks.tile_plan_sharded(mesh, v, len(color_masks), 2, True)
-        if plan is None:
-            return None
-        return stks.ShardedTiledStencilOps(mesh, sel, dinv, diag,
-                                           color_masks, plan, mixed=True,
-                                           sel_is_t=sel_is_t)
-    plan = stks.tile_plan(mesh, v, len(color_masks), 2, True)
-    if plan is None:
-        return None
-    return stks.TiledStencilOps(mesh, sel, dinv, diag, color_masks, plan,
-                                mixed=True, sel_is_t=sel_is_t)
+    return mv, pc
 
 
 def make_solver_ops_fam(mesh: MeshArrays, diag: jax.Array, sel: jax.Array,
-                        kind: str = "JACOBI", color_masks=None,
-                        linear_iter: int = 5, allow_pallas: bool = True):
-    """(matvec, precond, precond_matvec|None, solve|None) from family-major
-    blocks.
-
-    For assemblies that produce the off-diagonal blocks directly in the
+                        kind: str = "JACOBI", color_masks=None):
+    """(matvec, precond) from off-diagonal blocks already in the
     static-stencil layout sel (K, nP, v, v) — sel[k, p] multiplies
     x[p + offsets[k]] in row p — skipping BlockJacobian + gather_offdiag
     entirely (the per-solve stacked gather was ~0.2 ms of the 9k coupled
@@ -480,30 +331,9 @@ def make_solver_ops_fam(mesh: MeshArrays, diag: jax.Array, sel: jax.Array,
         from su2_tpu.linalg import wavefront
         mv = lambda x: _bmv(diag, x) + _offdiag_apply(mesh, sel, x)
         pcw = wavefront.make_wavefront_pc(mesh, diag.shape[-1])
-        return mv, (lambda r: pcw(diag, sel, r)), None, None
+        return mv, (lambda r: pcw(diag, sel, r))
     dinv = block_diag_inv(diag)
-    v = diag.shape[-1]
     sgs = kind in ("LU_SGS", "ILU0", "LINELET") and color_masks is not None
-    if sgs and allow_pallas:
-        from su2_tpu.pallas import stencil_solve as stks
-        if stks.supported(mesh, v, diag.dtype, len(color_masks)):
-            ops = stks.StencilSolveOps(mesh, sel, dinv, diag, color_masks)
-            return ops.matvec, ops.precond, ops.precond_matvec, \
-                _fused_solve(stks, ops, mesh, v, diag.dtype,
-                             len(color_masks), linear_iter)
-        if (diag.dtype == jnp.float32
-                and stks.supported(mesh, v, jnp.bfloat16, len(color_masks))):
-            # bf16-block preconditioner sweep (one launch, sel read from
-            # HBM once); f32 matvec preserves the linear tolerance
-            ops = stks.StencilSolveOps(mesh, sel, dinv, diag, color_masks,
-                                       sel_dtype=jnp.bfloat16,
-                                       m=linear_iter)
-            mv = lambda x: _bmv(diag, x) + _offdiag_apply(mesh, sel, x)
-            return mv, ops.precond, _mixed_pm(ops), _mixed_solve(ops)
-        ops_t = _tiled_tier(mesh, sel, dinv, diag, color_masks, False)
-        if ops_t is not None:
-            mv = lambda x: _bmv(diag, x) + _offdiag_apply(mesh, sel, x)
-            return mv, ops_t.precond, ops_t.precond_matvec, None
     mv = lambda x: _bmv(diag, x) + _offdiag_apply(mesh, sel, x)
     if sgs:
         z_jac = BlockJacobian(diag=diag, off_ij=diag, off_ji=diag)
@@ -511,78 +341,7 @@ def make_solver_ops_fam(mesh: MeshArrays, diag: jax.Array, sel: jax.Array,
                                             r, offdiag=sel)
     else:
         pc = lambda r: block_jacobi_apply(dinv, r)
-    return mv, pc, None, None
-
-
-def _offdiag_apply_t(mesh: MeshArrays, sel_t: jax.Array, x: jax.Array):
-    """Off-diagonal product from the LANE-layout blocks: y[p] += sum_k
-    B_k[p] x[p + o_k].  Wrapped rolls read garbage lanes that multiply the
-    zero padding blocks, so no masking is needed.  One elementwise pass per
-    offset with the node axis minor — full lane utilization (the node-major
-    (nP, v, v) form pads v to 128 lanes)."""
-    n, v = x.shape
-    xt = x.T                                                  # (v, nP)
-    out = None
-    for kk, o in enumerate(mesh.stencil_offsets):
-        xs = jnp.roll(xt, -o, axis=1)
-        blk = sel_t[kk * v * v:(kk + 1) * v * v]
-        y = jnp.concatenate(
-            [sum(blk[a * v + b] * xs[b] for b in range(v))[None]
-             for a in range(v)], axis=0)
-        out = y if out is None else out + y
-    return out.T
-
-
-def make_solver_ops_stencil_t(mesh: MeshArrays, diag: jax.Array,
-                              sel_t: jax.Array, kind: str = "JACOBI",
-                              color_masks=None, linear_iter: int = 5,
-                              allow_pallas: bool = True):
-    """(matvec, precond, precond_matvec|None, solve|None) from lane-layout
-    off-diagonal blocks (StencilJacobianT) — the fused implicit assembly's
-    native form.
-    The stencil pallas kernels consume sel_t directly (zero relayout);
-    elsewhere it is converted back to the node-major stencil form once."""
-    if kind == "LU_SGS_WAVE":
-        from su2_tpu.linalg import wavefront
-        v = diag.shape[-1]
-        sel = sel_t.reshape(len(mesh.stencil_offsets), v, v,
-                            mesh.npoint).transpose(0, 3, 1, 2)
-        mv = lambda x: _bmv(diag, x) + _offdiag_apply(mesh, sel, x)
-        pcw = wavefront.make_wavefront_pc(mesh, v)
-        return mv, (lambda r: pcw(diag, sel, r)), None, None
-    dinv = block_diag_inv(diag)
-    v = diag.shape[-1]
-    n = mesh.npoint
-    k = len(mesh.stencil_offsets)
-    sgs = kind in ("LU_SGS", "ILU0", "LINELET") and color_masks is not None
-    if sgs and allow_pallas:
-        from su2_tpu.pallas import stencil_solve as stks
-        if stks.supported(mesh, v, diag.dtype, len(color_masks)):
-            ops = stks.StencilSolveOps(mesh, sel_t, dinv, diag, color_masks,
-                                       sel_is_t=True)
-            return ops.matvec, ops.precond, ops.precond_matvec, \
-                _fused_solve(stks, ops, mesh, v, diag.dtype,
-                             len(color_masks), linear_iter)
-        if (diag.dtype == jnp.float32
-                and stks.supported(mesh, v, jnp.bfloat16, len(color_masks))):
-            ops = stks.StencilSolveOps(mesh, sel_t, dinv, diag, color_masks,
-                                       sel_dtype=jnp.bfloat16, sel_is_t=True,
-                                       m=linear_iter)
-            mv = lambda x: _bmv(diag, x) + _offdiag_apply_t(mesh, sel_t, x)
-            return mv, ops.precond, _mixed_pm(ops), _mixed_solve(ops)
-        ops_t = _tiled_tier(mesh, sel_t, dinv, diag, color_masks, True)
-        if ops_t is not None:
-            mv = lambda x: _bmv(diag, x) + _offdiag_apply_t(mesh, sel_t, x)
-            return mv, ops_t.precond, ops_t.precond_matvec, None
-    sel = sel_t.reshape(k, v, v, n).transpose(0, 3, 1, 2)
-    mv = lambda x: _bmv(diag, x) + _offdiag_apply(mesh, sel, x)
-    if sgs:
-        z_jac = BlockJacobian(diag=diag, off_ij=diag, off_ji=diag)
-        pc = lambda r: multicolor_sgs_apply(mesh, z_jac, dinv, color_masks,
-                                            r, offdiag=sel)
-    else:
-        pc = lambda r: block_jacobi_apply(dinv, r)
-    return mv, pc, None, None
+    return mv, pc
 
 
 def make_preconditioner(mesh: MeshArrays, jac: BlockJacobian,

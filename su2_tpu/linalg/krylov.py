@@ -1,6 +1,6 @@
 """Matrix-free Krylov solvers: FGMRES, BCGSTAB, CG.
 
-TPU-native CSysSolve (reference: Common/src/linear_solvers_structure.cpp —
+Device-side CSysSolve (reference: Common/src/linear_solvers_structure.cpp —
 CG :202, FGMRES :309, BCGSTAB :465).  Solvers are pure functions over
 (nP, v)-shaped vectors with a caller-supplied matvec and (right)
 preconditioner; iteration counts are static (the reference's
@@ -36,14 +36,10 @@ def _pow2_scale(b):
     return jnp.where(absmax > 0, s, jnp.ones_like(s))
 
 
-def fgmres(matvec, precond, b, x0=None, max_iter: int = 5, tol: float = 1e-6,
-           precond_matvec=None):
+def fgmres(matvec, precond, b, x0=None, max_iter: int = 5, tol: float = 1e-6):
     """Flexible GMRES (right preconditioning), single cycle of `max_iter`
     Krylov vectors (matches the reference usage: FGMRES with a small fixed
     iteration budget, tolerance `tol` relative to ||b||).
-
-    `precond_matvec`, when given, computes (z, A z) = (precond(v),
-    matvec(precond(v))) in one fused application (pallas stencil path).
 
     Returns (x, final_relative_residual, iters_used).
     """
@@ -76,11 +72,8 @@ def fgmres(matvec, precond, b, x0=None, max_iter: int = 5, tol: float = 1e-6,
     one = jnp.ones_like(beta)
     zero = jnp.zeros_like(beta)
     for j in range(m):
-        if precond_matvec is not None:
-            z, w = precond_matvec(vs[j])
-        else:
-            z = precond(vs[j])
-            w = matvec(z)
+        z = precond(vs[j])
+        w = matvec(z)
         zs.append(z)
         col = []
         for i in range(j + 1):

@@ -1,6 +1,6 @@
 """Linelet preconditioner: block-Thomas along wall-normal lines.
 
-TPU-native form of CSysMatrix::BuildLineletPreconditioner /
+Data-parallel form of CSysMatrix::BuildLineletPreconditioner /
 ComputeLineletPreconditioner (reference: Common/src/matrix_structure.cpp
 :1837-2028 build, :2029-2148 apply): lines grow from no-slip/Euler-wall
 vertices along the strongest-coupling (largest area/volume weight) edge
@@ -11,7 +11,7 @@ algorithm and applies block-Jacobi everywhere else.
 Lines are padded to one static length and solved as a lax.scan over the
 line axis, batched across all lines (each step is a (nLines, v, v)
 batched small-block inverse/multiply).  The scan is sequential over
-~wall-normal extent, so on TPU this preconditioner trades latency for
+~wall-normal extent, so this preconditioner trades latency for
 the stronger smoothing — the multicolor SGS is usually faster per
 application; LINELET is provided for reference parity and for strongly
 anisotropic meshes where the line solve pays off.

@@ -2,7 +2,7 @@
 
 The production preconditioner is a multicolor symmetric block-Gauss-Seidel
 sweep (linalg/blockcsr.py:multicolor_sgs_apply) — every color updates as one
-dense batch, which is the TPU-viable ordering.  The reference sweeps nodes
+dense batch, which is the data-parallel ordering.  The reference sweeps nodes
 SEQUENTIALLY in natural order (CSysMatrix::ComputeLU_SGSPreconditioner,
 Common/src/matrix_structure.cpp:1673):
 

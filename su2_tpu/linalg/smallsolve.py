@@ -1,10 +1,9 @@
-"""Batched dense solves for small (Ns x Ns) systems, TPU-native.
+"""Batched dense solves for small (Ns x Ns) systems.
 
-jnp.linalg.solve lowers to per-matrix LAPACK-style LU — catastrophic for
-huge batches of tiny systems on TPU (it dominated the viscous flux at ~90ms
-per step).  This Gauss-Jordan elimination with partial pivoting is pure
-vectorized VPU work over the batch: n unrolled pivot steps of elementwise
-(B, n, m) updates.
+jnp.linalg.solve lowers to per-matrix LAPACK-style LU, a poor fit for huge
+batches of tiny systems.  This Gauss-Jordan elimination with partial
+pivoting is pure vectorized elementwise work over the batch: n unrolled
+pivot steps of (B, n, m) updates.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ def gauss_solve(a: jnp.ndarray, b: jnp.ndarray, pivot: bool = True) -> jnp.ndarr
     so the pivot loop unrolls at trace time.
 
     pivot=False skips the row exchanges (argmax + take_along_axis lower to
-    per-batch dynamic gathers on TPU, which dominate the solve for large
+    per-batch dynamic gathers, which dominate the solve for large
     batches).  Use it for systems with a guaranteed dominant diagonal — the
     regularized Stefan-Maxwell matrix, the molar->mass operator, and the
     time-augmented block-Jacobi diagonals all qualify.
@@ -35,8 +34,8 @@ def gauss_solve(a: jnp.ndarray, b: jnp.ndarray, pivot: bool = True) -> jnp.ndarr
             prow = aug[..., col, :] / safe
             factors = aug[..., :, col][..., None]
             not_col = (rows != col)[:, None]
-            # single select (the .at[col].set row write lowered to a
-            # scatter that dominated the batched solve on TPU)
+            # single select (the .at[col].set row write lowers to a
+            # scatter)
             aug = jnp.where(not_col, aug - factors * prow[..., None, :],
                             jnp.broadcast_to(prow[..., None, :], aug.shape))
         return aug[..., :, n:]
@@ -72,14 +71,9 @@ def gauss_inv_t(a: jnp.ndarray) -> jnp.ndarray:
     """Batched inverse of (B, n, n) blocks with the BATCH axis minor.
 
     Same pivot-free Gauss-Jordan arithmetic as gauss_solve(pivot=False),
-    but every elementwise op runs on (n, 2n, B) arrays — B maps to vector
-    lanes.  The node-major (B, n, n) form tiles each tiny block onto an
-    (8, 128) register tile (<= 13/128 lane utilization), which made the
-    v=8 3D block-diagonal inverse ~10x off the HBM roofline and the
-    single largest cost of the 3D implicit step (round-5 profile:
-    ~12 ms/iter of subtract_select/slice fusions at 65k nodes).  Two
-    relayout transposes bracket the solve; everything between is
-    full-lane VPU work."""
+    but every elementwise op runs on (n, 2n, B) arrays, so the batch axis
+    is the contiguous one and the tiny n x n blocks never sit in the
+    minor dimensions.  Two relayout transposes bracket the solve."""
     bsz, n = a.shape[0], a.shape[-1]
     at = a.reshape(bsz, n * n).T                            # (n*n, B) 2-D
     one = jnp.ones((bsz,), a.dtype)

@@ -1,4 +1,4 @@
-"""TPU-resident sequential-equivalent LU-SGS: wavefront (level-scheduled)
+"""Device-resident sequential-equivalent LU-SGS: wavefront (level-scheduled)
 sweeps in natural node order.
 
 The reference's LU-SGS preconditioner sweeps nodes SEQUENTIALLY in natural

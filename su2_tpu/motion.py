@@ -8,7 +8,7 @@ fluxes evaluated with the relative velocity u - u_g plus the rotating-frame
 momentum source CSourceRotatingFrame_Flow, SU2_CFD/src/numerics_source
 path; driver hookup iteration_structure.cpp SetGrid_Movement).
 
-TPU-first design: motions are PURE FUNCTIONS of time — coordinates,
+Design: motions are PURE FUNCTIONS of time — coordinates,
 rotation matrices, and grid velocities are computed analytically (the
 reference also uses the analytic forms for rigid motion).  Unsteady motion
 runs through the differentiable remesh path (geometry/diffgeo.py): the

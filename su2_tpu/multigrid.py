@@ -6,7 +6,7 @@ SU2_CFD/src/integration_time.cpp:42-692 (MultiGrid_Cycle, restriction
 SetRestricted_Solution / prolongation SetProlongated_Correction with the
 MG_DAMP_* factors).
 
-TPU-first design: agglomeration runs once on the host (greedy seed growth on
+Design: agglomeration runs once on the host (greedy seed growth on
 the dual graph, like CMultiGridGeometry's vertex agglomeration); each coarse
 level is an ordinary :class:`MeshArrays` whose edge normals / volumes are
 exact aggregates of the fine ones, so every fine-level kernel (residual
@@ -365,16 +365,11 @@ class Multigrid:
                                               dt)
             if forcing is not None:
                 res = res + forcing
-            mv, pc, pm, solve = blockcsr.make_solver_ops(
-                mesh, jac, cfg.linear_solver_prec, self.color_masks[lvl],
-                linear_iter=cfg.linear_solver_iter)
-            if solve is not None:
-                sol, _, _ = solve(-res, cfg.linear_solver_iter,
-                                  cfg.linear_solver_error)
-            else:
-                sol, _, _ = krylov.fgmres(
-                    mv, pc, -res, max_iter=cfg.linear_solver_iter,
-                    tol=cfg.linear_solver_error, precond_matvec=pm)
+            mv, pc = blockcsr.make_solver_ops(
+                mesh, jac, cfg.linear_solver_prec, self.color_masks[lvl])
+            sol, _, _ = krylov.fgmres(
+                mv, pc, -res, max_iter=cfg.linear_solver_iter,
+                tol=cfg.linear_solver_error)
             u = jnp.clip(u2 + cfg.relaxation_factor_flow * sol,
                          lower, upper)
             if wall_mask is not None:
@@ -439,7 +434,7 @@ class Multigrid:
         hist = []
         for k in range(n_cycles):
             u, t_guess, rms = self.step(u, t_guess)
-            lr = np.log10(np.maximum(np.asarray(rms), 1e-300))
+            lr = np.log10(np.maximum(np.asarray(rms, np.float64), 1e-300))
             hist.append(lr)
             if not quiet:
                 print(f"  MG cycle {k:4d}  Res[Rho]: {lr[self.lay.RHO]:.6f}")

@@ -30,9 +30,8 @@ def _cat_nonempty(parts, axis):
 
 
 def _set_cols(x, start, vals):
-    """x[:, start:start+w] = vals via concatenate (Pallas-lowerable; the
-    .at[].set/.add forms hit an unimplemented scatter in the TPU kernel
-    lowering)."""
+    """x[:, start:start+w] = vals via concatenate (a fusible elementwise
+    form instead of a scatter)."""
     w = 1 if vals.ndim == 1 else vals.shape[1]
     v2 = vals[:, None] if vals.ndim == 1 else vals
     return _cat_nonempty([x[:, :start], v2, x[:, start + w:]], 1)

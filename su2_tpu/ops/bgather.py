@@ -1,23 +1,12 @@
-"""Boundary (small static index set) gather/scatter as one-hot matmuls.
+"""Boundary (small static index set) gather/scatter.
 
-XLA's TPU gather emitter scalarizes small row gathers/scatters from arrays
-whose chosen layout is feature-major: `v[nodes]` with a ~100-entry marker
-node list lowers to a while loop of per-row dynamic-slices — ~5 ops *per
-boundary vertex* each paying multi-microsecond dispatch gaps.  On the
-shipped 9k-cell case these loops account for several ms of a ~20 ms step.
-
-Since marker node lists are STATIC (host-side numpy, fixed per mesh), the
-selection matrix onehot(idx) is a trace-time constant pattern and the gather
-becomes one MXU matmul:
-
-    rows(x, idx)            = onehot(idx, n) @ x           (nb, w)
-    add_rows(dest, idx, y)  = dest + onehot(idx, n).T @ y  (n, w)
-
-Exactness: with ``precision=HIGHEST`` (bf16x6 passes on TPU) a product
-against a selector in {0, 1} reconstructs the f32 operand exactly, and all
-other terms are exactly zero, so the contraction is bit-equal to direct
-indexing; on CPU f64 the matmul is exact for the same reason (one nonzero
-per row).  Duplicate indices in ``add_rows`` sum, matching ``.at[].add``.
+Marker node lists are static host-side numpy arrays.  Index sets that are
+arithmetic progressions in the node order (walls are contiguous runs,
+inflow/outflow columns sit at a fixed row stride on structured-ordered
+meshes) take slice and pad+add forms: an elementwise pad+add, unlike
+``.at[idx].add`` (a scatter), is partitioned by GSPMD without
+all-gathering a sharded operand, and fuses with its consumer on one
+device.  Every other index set is plain indexing and ``.at[]`` updates.
 
 Reference semantics: per-marker vertex loops, e.g. BC loops in
 SU2_CFD/src/solver_direct_reactive.cpp:2881-4129.
@@ -30,13 +19,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-# Above this many indices the one-hot contraction's nb*n FLOP cost stops
-# being trivially cheap and XLA's native gather vectorizes anyway.
-MAX_ONEHOT = 4096
-
-# Strided-AP gathers via reshape + simple slice (benchmark toggle).
-_STRIDED_RESHAPE = True
-
 
 def _static_idx(idx):
     """Return idx as a host numpy array if it is trace-time static."""
@@ -48,41 +30,12 @@ def _static_idx(idx):
     return None
 
 
-def _onehot(idx, n, dtype):
-    cols = jax.lax.broadcasted_iota(jnp.int32, (idx.shape[0], n), 1)
-    return (cols == jnp.asarray(idx, jnp.int32)[:, None]).astype(dtype)
-
-
-def _sel_dot(onehot_f, xf):
-    """Exact selection product onehot @ xf.
-
-    Large-n f32: one DEFAULT-precision bf16 pass over a 3-level column
-    split of xf (t1+t2+t3 == x to f32 ulp, selector exact in bf16) — half
-    the MXU passes of the 6-pass HIGHEST f32 dot, which dominates
-    large-mesh BC sections.  Small arrays (MACs trivial) and other dtypes
-    keep the HIGHEST dot: the split's elementwise passes aren't free."""
-    if (xf.dtype != jnp.float32
-            or max(onehot_f.shape[0], xf.shape[0]) < 32768):
-        return jnp.dot(onehot_f, xf, precision=jax.lax.Precision.HIGHEST)
-    w = xf.shape[1]
-    t1 = xf.astype(jnp.bfloat16)
-    r1 = xf - t1.astype(jnp.float32)
-    t2 = r1.astype(jnp.bfloat16)
-    t3 = (r1 - t2.astype(jnp.float32)).astype(jnp.bfloat16)
-    xs = jnp.concatenate([t1, t2, t3], axis=1)
-    o3 = jnp.dot(onehot_f.astype(jnp.bfloat16), xs,
-                 preferred_element_type=jnp.float32,
-                 precision=jax.lax.Precision.DEFAULT)
-    return o3[:, :w] + o3[:, w:2 * w] + o3[:, 2 * w:]
-
-
 def _ap_segments(sidx, max_seg=8):
     """Split sidx into maximal arithmetic-progression runs.
 
     Batched BC index sets are concatenations of per-marker runs (each an AP
     in the structured ordering), so a handful of segments covers them; each
-    segment then takes the slice / pad+add fast path instead of the
-    (nb, n) one-hot contraction.  Returns [(pos, len, (start, stride))] or
+    segment then takes the slice / pad+add form.  Returns [(pos, len, (start, stride))] or
     None when more than max_seg segments would be needed."""
     n = sidx.size
     if n < 2:
@@ -112,8 +65,7 @@ def _arith_prog(sidx):
 
     Marker vertex lists on structured(-as-unstructured) meshes are APs in
     the node ordering: walls are contiguous runs (stride 1), inflow/
-    outflow columns sit at a fixed row stride.  Contiguous runs bypass the
-    one-hot contraction entirely (one slice / update-slice)."""
+    outflow columns sit at a fixed row stride."""
     if sidx.size < 2:
         return None
     d = np.diff(sidx)
@@ -128,15 +80,12 @@ def _rows_ap(x, ap, nb):
     """x[start : start + nb*stride : stride] via simple slices, or None.
 
     stride 1: one slice.  stride s with n % s == 0: view the node dim as
-    (n/s, s) and take a SIMPLE middle-dim slice — reads only the touched
-    (8,128) tiles instead of contracting an (nb, n) one-hot (which
-    materializes ~n*nb bytes; the dominant BC cost at 142k cells).  A
-    *strided* lax.slice is still avoided — that form forced full-array
-    relayout copies (142k mesh: 14 -> 58 ms/iter)."""
+    (n/s, s) and take a simple middle-dim slice (a strided lax.slice is
+    partitioned less well under GSPMD)."""
     start, s = ap
     if s == 1:
         return jax.lax.slice_in_dim(x, start, start + nb, axis=0)
-    if s > 1 and x.shape[0] % s == 0 and _STRIDED_RESHAPE:
+    if s > 1 and x.shape[0] % s == 0:
         r0, c0 = divmod(start, s)
         x3 = x.reshape((x.shape[0] // s, s) + x.shape[1:])
         out = jax.lax.slice_in_dim(
@@ -156,18 +105,13 @@ def rows(x: jax.Array, idx) -> jax.Array:
         out = _rows_ap(x, ap, sidx.size)
         if out is not None:
             return out.reshape(sidx.shape + x.shape[1:])
-    segs = _ap_segments(sidx) if _STRIDED_RESHAPE else None
+    segs = _ap_segments(sidx)
     if segs is not None:
         parts = [_rows_ap(x, sap, ln) for _, ln, sap in segs]
         if all(p is not None for p in parts):
             return jnp.concatenate(parts, axis=0).reshape(
                 sidx.shape + x.shape[1:])
-    if sidx.size > MAX_ONEHOT or not jnp.issubdtype(x.dtype, jnp.floating):
-        return x[idx]
-    n = x.shape[0]
-    xf = x.reshape(n, -1)
-    out = _sel_dot(_onehot(sidx, n, x.dtype), xf)
-    return out.reshape(sidx.shape + x.shape[1:])
+    return x[idx]
 
 
 def _pad_ap(ap, nb, n, vv):
@@ -177,13 +121,12 @@ def _pad_ap(ap, nb, n, vv):
     scatter-add) is partitioned by GSPMD without all-gathering the sharded
     operand, and fuses with the consumer on a single device.  Strided APs
     (stride s, n % s == 0) route through the (n/s, s) view so the pad stays
-    simple — replacing the one-hot .T contraction that materializes an
-    (n, nb) selector (the dominant BC scatter cost at 100k+ cells)."""
+    simple."""
     start, s = ap
     if s == 1:
         pad = [(start, n - start - nb)] + [(0, 0)] * (vv.ndim - 1)
         return jnp.pad(vv, pad)
-    if s > 1 and n % s == 0 and _STRIDED_RESHAPE:
+    if s > 1 and n % s == 0:
         r0, c0 = divmod(start, s)
         nr = n // s
         vv3 = vv.reshape((nb, 1) + vv.shape[1:])
@@ -207,7 +150,7 @@ def add_rows(dest: jax.Array, idx, vals: jax.Array) -> jax.Array:
         upd = _pad_ap(ap, sidx.size, n, vv)
         if upd is not None:
             return dest + upd
-    segs = _ap_segments(sidx) if (_STRIDED_RESHAPE and isf) else None
+    segs = _ap_segments(sidx) if isf else None
     if segs is not None:
         vv = jnp.asarray(vals, dest.dtype).reshape(
             (sidx.size,) + dest.shape[1:])
@@ -219,35 +162,7 @@ def add_rows(dest: jax.Array, idx, vals: jax.Array) -> jax.Array:
             for u in upds:
                 out = out + u
             return out
-    if sidx.size > MAX_ONEHOT or not isf:
-        return dest.at[idx].add(vals)
-    vf = vals.reshape(sidx.size, -1).astype(dest.dtype)
-    upd = _sel_dot(_onehot(sidx, n, dest.dtype).T, vf)
-    return dest + upd.reshape(dest.shape)
-
-
-def add_cols(dest: jax.Array, idx, vals: jax.Array) -> jax.Array:
-    """dest.at[:, idx].add(vals) for lane-major dest (R, n), small static
-    idx, vals (R, nb) — the feature-major twin of add_rows.  Contiguous AP
-    runs pad along the lane axis; otherwise one exact one-hot contraction
-    (vals @ onehot(idx, n), selector in {0,1})."""
-    sidx = _static_idx(idx)
-    if sidx is None or sidx.size == 0:
-        return dest.at[:, idx].add(vals)
-    n = dest.shape[-1]
-    vv = jnp.asarray(vals, dest.dtype)
-    segs = _ap_segments(sidx)
-    if segs is not None and all(s == 1 for _, _, (_, s) in segs):
-        out = dest
-        for pos, ln, (start, _) in segs:
-            sl = jax.lax.slice_in_dim(vv, pos, pos + ln, axis=-1)
-            out = out + jnp.pad(sl, [(0, 0)] * (vv.ndim - 1)
-                                + [(start, n - start - ln)])
-        return out
-    if sidx.size > MAX_ONEHOT or not jnp.issubdtype(dest.dtype,
-                                                    jnp.floating):
-        return dest.at[:, idx].add(vals)
-    return dest + _sel_dot(vv, _onehot(sidx, n, dest.dtype))
+    return dest.at[idx].add(vals)
 
 
 def set_col_rows(dest: jax.Array, idx, col: int, vals: jax.Array) -> jax.Array:
@@ -261,15 +176,7 @@ def set_col_rows(dest: jax.Array, idx, col: int, vals: jax.Array) -> jax.Array:
     if ap is not None and ap[1] == 1:
         return dest.at[ap[0]:ap[0] + sidx.size, col].set(
             jnp.asarray(vals, dest.dtype))
-    if (sidx.size > MAX_ONEHOT
-            or not jnp.issubdtype(dest.dtype, jnp.floating)):
-        return dest.at[idx, col].set(vals)
-    full = _sel_dot(_onehot(sidx, n, dest.dtype).T,
-                    vals.astype(dest.dtype)[:, None])[:, 0]
-    mask = np.zeros((n,), bool)
-    mask[sidx] = True
-    return dest.at[:, col].set(jnp.where(jnp.asarray(mask), full,
-                                         dest[:, col]))
+    return dest.at[idx, col].set(vals)
 
 
 def set_rows(dest: jax.Array, idx, vals: jax.Array) -> jax.Array:
@@ -285,11 +192,4 @@ def set_rows(dest: jax.Array, idx, vals: jax.Array) -> jax.Array:
         vv = jnp.broadcast_to(
             jnp.asarray(vals, dest.dtype), (sidx.size,) + dest.shape[1:])
         return dest.at[ap[0]:ap[0] + sidx.size].set(vv)
-    if (sidx.size > MAX_ONEHOT
-            or not jnp.issubdtype(dest.dtype, jnp.floating)):
-        return dest.at[idx].set(vals)
-    mask = np.zeros((n,), bool)
-    mask[sidx] = True
-    keep = jnp.where(jnp.asarray(mask.reshape((n,) + (1,) * (dest.ndim - 1))),
-                     jnp.zeros_like(dest), dest)
-    return add_rows(keep, sidx, vals)
+    return dest.at[idx].set(vals)

@@ -17,38 +17,12 @@ from su2_tpu.geometry.mesh_data import MeshArrays
 
 EPS = 1e-16
 
-# Single cfg-method -> kernel-mode mapping shared by BOTH the node-major
-# dispatch (solvers.euler.compute_gradients) and the feature-major rows
-# fast path (gradient_rows below): a method missing here falls back to the
-# node-major path on every mesh size, so the two paths can never diverge
-# on large TPU meshes only.
+# cfg NUM_METHOD_GRAD -> gradient kind (solvers.euler.compute_gradients)
 GRAD_METHOD_MODE = {
     "GREEN_GAUSS": "GG",
     "WEIGHTED_LEAST_SQUARES": "WLS",
     "LEAST_SQUARES": "WLS",
 }
-
-
-def _use_tiled(mesh) -> bool:
-    """Tiled gradient sweep (pallas/gradients_tiled.py).  Default ON for
-    large TPU stencil meshes (>= 200k nodes — the same boundary as the
-    mesh-as-arguments tier, where no printed-digit parity is pinned):
-    measured 565k coupled step 27.06 -> 25.93 ms/iter.  Env knob
-    SU2_TPU_TILED_GRAD=1 forces it anywhere, =0 disables."""
-    import os
-    import jax
-    env = os.environ.get("SU2_TPU_TILED_GRAD", "")
-    if env == "0":
-        return False
-    if mesh.stencil_offsets is None:
-        return False
-    # sharded meshes since round 5: the tiled sweep runs under shard_map
-    # with a ppermute halo-slab exchange (gradients_tiled.
-    # _gradient_tiled_rows_sharded) — same owner-region arithmetic
-    if env == "1":
-        return True
-    return (mesh.npoint >= 200_000
-            and jax.devices()[0].platform == "tpu")
 
 
 def pg_fix(mesh: MeshArrays, grad: jnp.ndarray,
@@ -69,39 +43,6 @@ def pg_fix(mesh: MeshArrays, grad: jnp.ndarray,
     return grad.at[mesh.pg_start:].set(g2)
 
 
-def gradient_rows(mesh: MeshArrays, q: jnp.ndarray, method: str):
-    """(nP, nG) -> (nG*d, nP) feature-major gradient rows, or None when
-    the rows fast path does not apply (non-tiled mesh, periodic ghosts).
-
-    Row g*d + dd holds d(q_g)/dx_dd.  This is the tiled sweep's NATIVE
-    layout (pallas/gradients_tiled.gradient_tiled_rows); handing it to
-    feature-major consumers (the fused edge kernels' f_all stack) skips
-    the T(8,128)->T(2,128) node-major retiling that cost ~1.4 ms/iter at
-    565k.  Bitwise-identical values to green_gauss/weighted_least_squares
-    (same kernel, no relayout)."""
-    if not _use_tiled(mesh) or mesh.pg_src is not None:
-        return None
-    mode = GRAD_METHOD_MODE.get(method)
-    if mode is None:          # unknown method: node-major dispatch decides
-        return None
-    from su2_tpu.pallas import gradients_tiled as gt
-    return gt.gradient_tiled_rows(mesh, q, mode)
-
-
-def rows_to_grad(rows: jnp.ndarray, ng: int, d: int) -> jnp.ndarray:
-    """(nG*d, nP) rows -> (nP, nG, d) node-major gradient (the layout
-    green_gauss/weighted_least_squares return).
-
-    Written as transpose-then-minor-split: the reshape(ng, d, n) +
-    transpose(2, 0, 1) form lowered at 2.26M as a 26-trip XLA while loop
-    of per-row relayouts through a flat T(1024) intermediate
-    (~4.6 ms/iter, the largest single item of the round-5 tail profile);
-    a plain 2-D transpose followed by splitting the MINOR axis keeps the
-    efficient tiled-transpose path.  Identical values."""
-    n = rows.shape[1]
-    return rows.T.reshape(n, ng, d)
-
-
 def green_gauss(mesh: MeshArrays, q: jnp.ndarray) -> jnp.ndarray:
     """(nP, nG) -> (nP, nG, d) gradient.
 
@@ -109,11 +50,6 @@ def green_gauss(mesh: MeshArrays, q: jnp.ndarray) -> jnp.ndarray:
     where n_bnd,i is the accumulated (inward) vertex normal.
     """
     if mesh.gg_snormal is not None:
-        if _use_tiled(mesh):
-            from su2_tpu.pallas import gradients_tiled as gt
-            out = gt.gradient_tiled(mesh, q, "GG")
-            if out is not None:
-                return out
         # stencil meshes: per-offset signed dual normals make the whole
         # edge sweep K rolls + FMAs (no gather, no scatter) — each edge's
         # two side contributions are enumerated by the +-o offset pair
@@ -139,11 +75,6 @@ def weighted_least_squares(mesh: MeshArrays, q: jnp.ndarray) -> jnp.ndarray:
     singular-matrix guards (gradient = 0 if R is singular).
     """
     if mesh.wls_coeff is not None:
-        if _use_tiled(mesh):
-            from su2_tpu.pallas import gradients_tiled as gt
-            out = gt.gradient_tiled(mesh, q, "WLS")
-            if out is not None:
-                return out
         # stencil meshes: the normal-equation inverse is pure geometry and
         # is folded into per-offset coefficient vectors at setup
         # (mesh_data._stencil_grad_geometry) — runtime is K rolls + FMAs.
@@ -203,7 +134,7 @@ def _wls_3d(mesh: MeshArrays, q: jnp.ndarray) -> jnp.ndarray:
     dq = q[mesh.node_nbrs] - q[:, None, :]                      # (nP, D, nG)
     b = jnp.einsum("pd,pdi,pdg->pig", invw, dx, dq)             # (nP, 3, nG)
 
-    # adjugate inverse (vectorized; avoids per-node LAPACK on TPU)
+    # adjugate inverse (vectorized; avoids per-node LAPACK calls)
     c00 = a[:, 1, 1] * a[:, 2, 2] - a[:, 1, 2] * a[:, 2, 1]
     c01 = a[:, 0, 2] * a[:, 2, 1] - a[:, 0, 1] * a[:, 2, 2]
     c02 = a[:, 0, 1] * a[:, 1, 2] - a[:, 0, 2] * a[:, 1, 1]

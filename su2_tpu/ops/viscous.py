@@ -126,8 +126,7 @@ def _molar2mass_operator(lib: ChemLib, ys, xs):
 def _molar2mass_solve(lib: ChemLib, ys, xs, b):
     """Solve M_tilde gy = b without materializing M_tilde.
 
-    Row-major port of the fused edge kernel's rank-2 Woodbury form
-    (ops/viscous_t.py _molar2mass_solve_t): M = D + u 1^T + w z^T with
+    Rank-2 Woodbury form: M = D + u 1^T + w z^T with
     D = diag(mm_sum*sigma/mm), u = mm_sum*ys/mm, w = -mm_sum*xs,
     z = 1/mm, so the solve is O(S) per row instead of the O(S^3)
     Gauss-Jordan — and ~50 HLO ops fewer per boundary-flux call.
@@ -161,8 +160,8 @@ def _molar2mass_solve(lib: ChemLib, ys, xs, b):
 def _stefan_maxwell_jd(lib, rho, xs, ys, dij, grad_xs_norm):
     """Solve (Gamma + alpha y 1^T) Jd = -grad_xs_norm (Solve_SM, :451-470).
 
-    Batched Gauss-Jordan (see linalg.smallsolve) — orders of magnitude faster
-    than per-face LU on TPU, and more accurate than the reference's per-face
+    Batched Gauss-Jordan (see linalg.smallsolve) — vectorized over faces
+    instead of per-face LU, and more accurate than the reference's per-face
     BiCGSTAB at tol 1e-11.
     """
     from su2_tpu.linalg.smallsolve import gauss_solve

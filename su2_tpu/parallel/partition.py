@@ -1,6 +1,6 @@
 """Spatial mesh partitioning for device sharding.
 
-TPU-native replacement for the reference's ParMETIS domain decomposition
+Data-parallel replacement for the reference's ParMETIS domain decomposition
 (Common/src/geometry_structure.cpp:11465-11554): a recursive coordinate
 bisection (RCB) run on host at setup.  Nodes are REORDERED so each device
 owns one contiguous, equally-sized block — the natural layout for

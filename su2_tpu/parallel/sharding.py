@@ -1,18 +1,15 @@
 """Multi-chip sharding of the solver state over a device mesh.
 
-TPU-native replacement for the reference's MPI domain decomposition + halo
-exchange (SURVEY §2.3): nodes are RCB-reordered so each device owns a
+Replacement for the reference's MPI domain decomposition + halo exchange
+(SURVEY §2.3): nodes are RCB-reordered so each device owns a
 contiguous spatial block, node- and edge-indexed arrays are sharded over the
 leading axis of a 1-D ``jax.sharding.Mesh`` ("cells" axis — the only
 parallel axis this physics has), and the jitted step runs as one SPMD
 program.  Cross-shard edge gathers at partition frontiers become XLA
-collectives over ICI (the GSPMD partitioner inserts them from the sharding
+collectives (the GSPMD partitioner inserts them from the sharding
 annotations); psum-style reductions (min dt, RMS) fall out of the same
-propagation.
-
-Explicit neighbor halo-slab exchange via shard_map + ppermute lives in
-:mod:`su2_tpu.parallel.tiled_shard` and carries the production multi-chip
-pallas tiers (windowed edge kernel, tiled gradients/solve) since round 5.
+propagation.  The pointwise node-state kernel runs per shard under
+shard_map (pallas/node_state.py).
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The framework runs in two modes:
   - validation: float64 (requires ``jax.config.update("jax_enable_x64", True)``)
     used when matching the reference residual histories to 1e-6.
-  - production: float32 state with float32 accumulation (TPU fast path).
+  - production: float32 state with float32 accumulation.
 
 All numerics modules fetch their working dtype from here instead of
 hard-coding one, so a single switch flips the whole solver.

@@ -14,7 +14,7 @@ DEFORM_STIFFNESS_TYPE).
 Linear path: element stiffnesses precomputed in one batched einsum (P1
 triangles exactly, bilinear quads with 2x2 Gauss); matrix-free
 Jacobi-preconditioned CG with boundary elimination.  Nonlinear path
-(TPU-idiomatic replacement for the hand-coded tangent/stress kernels):
+(array-idiomatic replacement for the hand-coded tangent/stress kernels):
 the total Neo-Hookean energy is a pure JAX function of the displacement,
 the residual is jax.grad of it and the consistent tangent operator is the
 JVP of that gradient — Newton-Krylov with incremental Dirichlet loading

@@ -247,7 +247,7 @@ class IncSimulation:
         hist = []
         for it in range(niter):
             u, rms = self._step(u)
-            lr = np.log10(np.maximum(np.asarray(rms), 1e-300))
+            lr = np.log10(np.maximum(np.asarray(rms, np.float64), 1e-300))
             hist.append(lr)
             if not quiet and it % 20 == 0:
                 print(f"{it:5d}  Res[P]: {lr[0]: .6f}  Res[rhoU]: {lr[1]: .6f}")

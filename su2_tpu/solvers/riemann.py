@@ -11,7 +11,7 @@ Jacobian at the interior state, selects the incoming characteristics
 then evaluates the plain projected inviscid flux at u_b
 (GetInviscidProjFlux) and, implicitly, dF(u_b)/du_b * DubDu.
 
-TPU-native design: batched over the marker's faces with the projection
+Design: batched over the marker's faces with the projection
 written in the closed characteristic-jump form (no eigenvector matrices):
 
     dp   = dP/dU . du                     (exact pressure jump row)

@@ -40,8 +40,8 @@ BETA_STAR = 0.09
 A1 = 0.31
 # float() keeps these WEAK-typed python scalars: np.sqrt returns a strong
 # np.float64 that would promote the f32 source assembly to f64 under the
-# x64 validation tier (silently truncated on TPU, a scan-carry dtype
-# mismatch on CPU — caught by test_mesh_args)
+# x64 validation tier (a scan-carry dtype mismatch — caught by
+# test_mesh_args)
 ALFA_1 = float(BETA_1 / BETA_STAR - SIGMA_OM1 * 0.41 ** 2
                / np.sqrt(BETA_STAR))
 ALFA_2 = float(BETA_2 / BETA_STAR - SIGMA_OM2 * 0.41 ** 2
@@ -66,14 +66,8 @@ def strain_and_vorticity(lay: Layout, grad: jnp.ndarray):
     """StrainMag and vorticity magnitude from the velocity gradient rows of
     the NS gradient set (rows 1..nd) (SetStrainMag/SetVorticity,
     variable_direct_reactive.cpp:1038-1095)."""
-    return strain_and_vorticity_g(grad[:, 1:1 + lay.ndim, :])
-
-
-def strain_and_vorticity_g(gvel: jnp.ndarray):
-    """strain_and_vorticity from the (N, nd, nd) velocity-gradient block
-    directly (the gradient-rows fast path hands just these rows)."""
-    nd = gvel.shape[1]
-    g = gvel                                 # (N, comp, dim)
+    g = grad[:, 1:1 + lay.ndim, :]           # (N, comp, dim)
+    nd = g.shape[1]
     div = jnp.einsum("ndd->n", g)
     diag = sum((g[:, d, d] - div / 3.0) ** 2 for d in range(nd))
     off = sum(2.0 * (0.5 * (g[:, a, b] + g[:, b, a])) ** 2
@@ -103,9 +97,8 @@ def blending(k, w, grad_k, grad_w, mu, rho, dist):
     arg1 = jnp.minimum(arg2, 4.0 * rho * SIGMA_OM2 * k
                        / (cdkw * dist * dist + EPS * EPS))
     # clamp the tanh argument at ~20 (bit-exact: tanh rounds to 1.0 past
-    # x ~ 19 in f64): the wall rows' arg ~ 1/EPS^2 overflows the TPU
-    # f64-emulation exponent range (f32-range double-float), and its tanh
-    # has no large-|x| saturation branch (tanh(1e8) -> NaN)
+    # x ~ 19 in f64): the wall rows' arg ~ 1/EPS^2 would otherwise
+    # overflow f32 in the ** 4
     f1 = jnp.tanh(jnp.minimum(arg1, 2.2) ** 4)
     f2 = jnp.tanh(jnp.minimum(jnp.maximum(2.0 * arg2a, arg2b), 4.5) ** 2)
     return f1, f2, cdkw
@@ -128,35 +121,17 @@ class SSTConfig:
     linear_tol: float = 1e-6
     linear_prec: str = "JACOBI"
     color_masks: tuple | None = None
-    # False -> force the pure-XLA SGS/matvec path (differentiable; the
-    # pallas stencil kernels' pltpu.roll has no AD rule) — the adjoint
-    # sets this
-    allow_pallas: bool = True
 
 
 # diagnostics: set to a list to capture each sst_step's assembled RHS
 # (meaningful for EAGER calls only — under jit the stash holds tracers)
 _RHS_STASH = None
 
-# "xla" (default) or "pallas": fused one-launch assembly
-# (pallas/sst_assemble.py) feeding the lane-layout stencil solve directly.
-# The driver turns "pallas" on for TPU f32 production runs (same switch
-# point as the node-state kernel); f64 validation keeps the XLA path.
-_ASSEMBLE_MODE = "xla"
-
-
-def set_assemble_mode(mode: str) -> None:
-    global _ASSEMBLE_MODE
-    assert mode in ("xla", "pallas")
-    _ASSEMBLE_MODE = mode
-
-
 def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs,
              q, v, flow_grad, mu, mu_t_node, strain_mag, dist,
              rho_old, dt, kine_inf, omega_inf,
              lib=None, dpdu_e=None, tke_inf: float = 0.0, gq=None,
-             flow_fb=None, dense_bc=None, gq_prev=None, hb_src=None,
-             gvel=None):
+             flow_fb=None, dense_bc=None, gq_prev=None, hb_src=None):
     """One implicit Euler iteration of the SST system.
 
     q: (N, 2) primitive (k, omega); v: flow primitives; flow_grad: NS
@@ -201,30 +176,13 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs,
         else (grad_k, grad_w)
     f1, f2, cdkw = blending(q[:, 0], q[:, 1], bk, bw, mu, rho, dist)
 
-    if (dense_bc is None and hb_src is None
-            and _ASSEMBLE_MODE == "pallas"
-            and scfg.linear_solver == "FGMRES"
-            and scfg.linear_prec in ("LU_SGS", "ILU0")
-            and scfg.color_masks):
-        # the fused path hard-codes the FGMRES + multicolor-SGS solve the
-        # shipped cfgs use; other solver/preconditioner choices keep the
-        # XLA path, which dispatches on both
-        from su2_tpu.pallas import sst_assemble as sstasm
-        if sstasm.supported(mesh) or sstasm.tile_plan(mesh) is not None:
-            return _sst_step_fused(lay, mesh, scfg, bcs, q, v, flow_grad,
-                                   mu, mu_t_node, strain_mag, dist, rho_old,
-                                   dt, kine_inf, omega_inf, lib, dpdu_e,
-                                   tke_inf, gq, grad_k, grad_w, flow_fb,
-                                   f1, f2, cdkw, gvel=gvel)
     sigma_k_blend = f1 * SIGMA_K1 + (1.0 - f1) * SIGMA_K2
     sigma_w_blend = f1 * SIGMA_OM1 + (1.0 - f1) * SIGMA_OM2
 
     # ---- convective + viscous edges (CUpwSca_TurbSST + CAvgGrad_TurbSST,
     #      uncorrected variant).  All node fields ride in ONE stacked
-    #      (nP, K) matrix gathered once per edge side: XLA's TPU gather
-    #      emitter moves ~0.6 GB/s on scalar (nE,) gathers but vectorizes
-    #      multi-column rows, and six separate scalar gathers were ~0.7 ms
-    #      of the 9k-cell coupled step. ----
+    #      (nP, K) matrix gathered once per edge side: one multi-column
+    #      gather instead of six scalar (nE,) gathers. ----
     d = lay.ndim
     diff_k = mu + sigma_k_blend * mu_t_node
     diff_w = mu + sigma_w_blend * mu_t_node
@@ -327,8 +285,7 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs,
         off_ji = -jac_ci - vji
 
     # ---- source (CSourcePieceWise_TurbSST) ----
-    if gvel is None:
-        gvel = flow_grad[:, 1:1 + lay.ndim, :]
+    gvel = flow_grad[:, 1:1 + lay.ndim, :]
     diverg = jnp.einsum("ndd->n", gvel)
     k_, w_ = q[:, 0], q[:, 1]
     alfa_b = f1 * ALFA_1 + (1.0 - f1) * ALFA_2
@@ -448,38 +405,21 @@ def sst_step(lay: Layout, mesh: MeshArrays, scfg: SSTConfig, bcs,
             mv = lambda x: blockcsr.matvec(mesh, jac, x, sel_g)
             pce = seq_sgs.edge_preconditioner(mesh, 2)
             pc = lambda r: pce(diag, off_ij, off_ji, r)
-        pm, solve = None, None
     elif fam_off is not None:
-        # off-diagonal 2x2 blocks are diagonal: hand the solver the LANE
-        # layout directly (rows [m00, 0, 0, m11] per offset) instead of
-        # materializing + relayouting a (K, nP, 2, 2) tensor — at 2.26M
-        # that round trip was several full-field passes per iteration
-        zrow = jnp.zeros_like(fam_off[0, :, 0])[None]
-        sel_rows = []
-        for k in range(fam_off.shape[0]):
-            sel_rows += [fam_off[k, :, 0][None], zrow, zrow,
-                         fam_off[k, :, 1][None]]
-        jac_t = blockcsr.StencilJacobianT(
-            diag=diag, sel_t=jnp.concatenate(sel_rows, axis=0))
-        mv, pc, pm, solve = blockcsr.make_solver_ops(
-            mesh, jac_t, scfg.linear_prec, scfg.color_masks,
-            linear_iter=scfg.linear_iter,
-            allow_pallas=scfg.allow_pallas)
+        # off-diagonal 2x2 blocks are diagonal: (K, nP, 2) -> stencil sel
+        mv, pc = blockcsr.make_solver_ops_fam(
+            mesh, diag, fam_off[:, :, :, None] * eye2, scfg.linear_prec,
+            scfg.color_masks)
     else:
         jac = BlockJacobian(diag=diag, off_ij=off_ij, off_ji=off_ji)
-        mv, pc, pm, solve = blockcsr.make_solver_ops(
-            mesh, jac, scfg.linear_prec, scfg.color_masks,
-            linear_iter=scfg.linear_iter,
-            allow_pallas=scfg.allow_pallas)
+        mv, pc = blockcsr.make_solver_ops(
+            mesh, jac, scfg.linear_prec, scfg.color_masks)
     if scfg.linear_solver == "BCGSTAB":
         sol, _, _ = krylov.bcgstab(mv, pc, rhs, max_iter=scfg.linear_iter,
                                    tol=scfg.linear_tol)
-    elif solve is not None:
-        # whole FGMRES cycle in one pallas launch (stencil_solve)
-        sol, _, _ = solve(rhs, scfg.linear_iter, scfg.linear_tol)
     else:
         sol, _, _ = krylov.fgmres(mv, pc, rhs, max_iter=scfg.linear_iter,
-                                  tol=scfg.linear_tol, precond_matvec=pm)
+                                  tol=scfg.linear_tol)
 
     # conservative update: q_new = (rho_old q_old + relax*d(rho q))/rho_new
     lower = jnp.asarray(LOWER, dtype=dtype)
@@ -581,174 +521,13 @@ def _weak_bc_batch(lay, bcs, q, v, vel, rho, kine_inf, omega_inf,
     return bn, bflux, a0b
 
 
-_CONSTS = (SIGMA_K1, SIGMA_K2, SIGMA_OM1, SIGMA_OM2, BETA_1, BETA_2,
-           BETA_STAR, A1, float(ALFA_1), float(ALFA_2))
-
-
-def _sst_step_fused(lay, mesh, scfg, bcs, q, v, flow_grad, mu, mu_t_node,
-                    strain_mag, dist, rho_old, dt, kine_inf, omega_inf,
-                    lib, dpdu_e, tke_inf, gq, grad_k, grad_w, flow_fb,
-                    f1, f2, cdkw, gvel=None):
-    """sst_step body on the fused-assembly path: ONE pallas launch builds
-    (res, diag, sel) in the lane layout (pallas/sst_assemble.py), the weak
-    BCs add in lane space (bg.add_cols), and the system feeds the
-    one-launch/mixed FGMRES kernels with zero relayout."""
-    from su2_tpu.pallas import sst_assemble as sstasm
-    from su2_tpu.pallas import stencil_solve as stks
-
-    n = q.shape[0]
-    npad = -(-n // 128) * 128
-    dtype = q.dtype
-    rho = v[:, lay.PRHO]
-    vel = v[:, lay.VX:lay.VX + lay.ndim]
-
-    # strong wall rows (k = 0, omega = 60 mu/(rho beta1 d^2))
-    wall_mask = jnp.zeros(n, dtype=bool)
-    q_wall = jnp.zeros((n, 2), dtype=dtype)
-    for bc in bcs:
-        nodes = bc.nodes
-        if bc.kind in ("isothermal_wall", "heatflux_wall"):
-            dnn = jnp.linalg.norm(bg.rows(mesh.coords, bc.nn)
-                                  - bg.rows(mesh.coords, nodes), axis=1)
-            w_wall = 60.0 * bg.rows(mu, bc.nn) \
-                / (bg.rows(rho, bc.nn) * BETA_1 * dnn * dnn)
-            wall_mask = bg.set_rows(wall_mask, nodes, True)
-            q_wall = bg.set_col_rows(q_wall, nodes, 1, w_wall)
-
-    if gvel is None:
-        gvel = flow_grad[:, 1:1 + lay.ndim, :]
-    diverg = jnp.einsum("ndd->n", gvel)
-    consts = _CONSTS + (float(scfg.cfl_red),)
-    res_t, dd_t, sel_t = sstasm.sst_assemble(
-        mesh, consts, q, rho, vel, gq, mu, mu_t_node, dist, strain_mag,
-        diverg, dt, wall_mask, f1, f2, cdkw)
-
-    # weak BCs in lane space; wall-corner faces masked out (the XLA path
-    # zeroes wall rows AFTER its BC adds — same result)
-    wk = _weak_bc_batch(lay, bcs, q, v, vel, rho, kine_inf, omega_inf,
-                        lib, dpdu_e, tke_inf, flow_fb)
-    if wk is not None:
-        bn, bflux, a0b = wk
-        notwall = 1.0 - bg.rows(wall_mask.astype(dtype), bn)
-        res_t = bg.add_cols(res_t, bn, (bflux * notwall[:, None]).T)
-        dd_t = bg.add_cols(
-            dd_t, bn, jnp.broadcast_to((a0b * notwall)[None, :],
-                                       (2, bn.shape[0])))
-
-    # ---- solve in lane space (zero relayout into the stencil kernels) ----
-    b_t = -res_t
-    zero_row = jnp.zeros_like(dd_t[0])
-    diag_t = jnp.stack([dd_t[0], zero_row, zero_row, dd_t[1]])
-    safe = jnp.where(dd_t == 0.0, 1.0, dd_t)
-    dinv_t = jnp.stack([1.0 / safe[0], zero_row, zero_row, 1.0 / safe[1]])
-    masks_t = stks._pad_lanes(
-        jnp.stack([m.astype(dtype) for m in scfg.color_masks]), npad)
-    offsets = tuple(mesh.stencil_offsets)
-    ncolor = len(scfg.color_masks)
-    interpret = jax.devices()[0].platform != "tpu"
-    if stks.fgmres_supported(mesh, 2, dtype, ncolor,
-                             m=int(scfg.linear_iter)):
-        x_t, _ = stks._fgmres_call(
-            sel_t, dinv_t, diag_t, masks_t, b_t, offsets=offsets, v=2,
-            ncolor=ncolor, m=int(scfg.linear_iter),
-            tol=float(scfg.linear_tol), interpret=interpret)
-    elif (dtype == jnp.float32
-          and stks.sgs_matvec_mixed_supported(mesh, 2, ncolor)):
-        selp_t = sel_t.astype(jnp.bfloat16)
-
-        def pm(r_t):
-            return stks._sgs_matvec_mixed_call(
-                selp_t, sel_t, dinv_t, diag_t, masks_t, r_t,
-                offsets=offsets, v=2, ncolor=ncolor, interpret=interpret)
-
-        x_t, _, _ = krylov.fgmres(None, None, b_t,
-                                  max_iter=scfg.linear_iter,
-                                  tol=scfg.linear_tol, precond_matvec=pm)
-    elif (dtype == jnp.float32
-          and (_plan := stks.tile_plan(mesh, 2, ncolor, 2, True))
-          is not None):
-        # round-4 streaming tier: fields past every VMEM-resident gate run
-        # the tiled mixed (z, A z) kernel — overlapping lane windows DMAed
-        # per tile, bitwise-identical owner results (stencil_solve.py)
-        selp_t = sel_t.astype(jnp.bfloat16)
-        T, H, ntiles, E = _plan
-        ext = lambda x: stks._pad_rows8(stks._extend_lanes(x, H, E))
-        selp_e, selm_e, dinv_e, diag_e, masks_e = (
-            ext(selp_t), ext(sel_t), ext(dinv_t), ext(diag_t), ext(masks_t))
-        # the Krylov loop runs at the padded tile width: r rides
-        # UNEXTENDED (kernel repositions a clamped DMA window), so no
-        # per-iteration halo concat / output slice
-        npad_t = ntiles * T
-        b_w = stks._pad_lanes(b_t, npad_t)
-
-        def pm(r_t):
-            return stks._tiled_sgs_matvec_mixed_call(
-                selp_e, selm_e, dinv_e, diag_e, masks_e, r_t,
-                offsets=offsets, v=2, ncolor=ncolor, T=T, H=H,
-                ntiles=ntiles, interpret=interpret, r_unext=True)
-
-        x_t, _, _ = krylov.fgmres(None, None, b_w,
-                                  max_iter=scfg.linear_iter,
-                                  tol=scfg.linear_tol, precond_matvec=pm)
-    else:
-        # tiny/unsupported sizes: per-launch sweep + matvec kernels
-        def pm(r_t):
-            return stks._sgs_matvec_call(
-                sel_t, dinv_t, diag_t, masks_t, r_t, offsets=offsets, v=2,
-                ncolor=ncolor, interpret=interpret)
-
-        x_t, _, _ = krylov.fgmres(None, None, b_t,
-                                  max_iter=scfg.linear_iter,
-                                  tol=scfg.linear_tol, precond_matvec=pm)
-    sol = x_t[:, :n].T
-
-    lower = jnp.asarray(LOWER, dtype=dtype)
-    upper = jnp.asarray(UPPER, dtype=dtype)
-    q_new = (rho_old[:, None] * q + scfg.relax * sol) / rho[:, None]
-    q_new = jnp.clip(q_new, lower, upper)
-    # wall rows rescaled by rho_old/rho and clipped like every other row
-    # (AddConservativeSolution semantics; k_wall lands on the 1e-10 clip)
-    q_new = jnp.where(
-        wall_mask[:, None],
-        jnp.clip(q_wall * (rho_old / rho)[:, None], lower, upper), q_new)
-
-    # rms over REAL nodes (pad lanes carry zero residual)
-    rms = jnp.sqrt(jnp.sum(b_t * b_t, axis=1) / n)
-
-    f1n, f2n, cdkwn = blending(q_new[:, 0], q_new[:, 1], grad_k, grad_w,
-                               mu, rho, dist)
-    mu_t_new = eddy_viscosity(rho, q_new[:, 0], q_new[:, 1], strain_mag, f2n)
-    outs = dict(f1=f1n, f2=f2n, cdkw=cdkwn, mu_t=mu_t_new,
-                sigma_k=f1n * SIGMA_K1 + (1.0 - f1n) * SIGMA_K2,
-                grad_k=grad_k, grad_w=grad_w, gq=gq)
-    return q_new, rms, outs
-
-
-def wall_distance(coords: np.ndarray, wall_points: np.ndarray,
-                  chunk: int = 4096) -> np.ndarray:
+def wall_distance(coords: np.ndarray, wall_points: np.ndarray) -> np.ndarray:
     """Distance of every node to the nearest no-slip wall vertex
-    (SU2 ComputeWall_Distance equivalent, point-based; chunked so the
-    pairwise matrix never materializes for large meshes)."""
+    (SU2 ComputeWall_Distance equivalent, point-based), by a k-d tree
+    query: O(N log W) on the host instead of the O(N W) pairwise scan."""
+    from scipy.spatial import cKDTree
+
     if wall_points.shape[0] == 0:
         return np.full(coords.shape[0], 1e10)
-    out = np.empty(coords.shape[0])
-    if coords.shape[0] >= 200_000:
-        # GEMM form |a-b|^2 = |a|^2 + |b|^2 - 2 a.b: the elementwise form
-        # materializes an (chunk, nW, d) temporary per chunk (~0.8 GB at
-        # 4096x8192x3) and took ~20 min at a 0.5M-node 3D box; BLAS does
-        # it in seconds.  f64 cancellation error at first-cell distances
-        # (~1e-6 of the coordinate scale) is ~5e-11 relative — but the
-        # exact elementwise arithmetic is kept below 200k nodes where
-        # printed-digit parity pins exist.
-        w2 = (wall_points ** 2).sum(-1)
-        for s in range(0, coords.shape[0], chunk):
-            blk = coords[s:s + chunk]
-            d2 = ((blk ** 2).sum(-1)[:, None] + w2[None, :]
-                  - 2.0 * blk @ wall_points.T)
-            out[s:s + chunk] = np.sqrt(np.maximum(d2.min(axis=1), 0.0))
-        return out
-    for s in range(0, coords.shape[0], chunk):
-        blk = coords[s:s + chunk]
-        d2 = ((blk[:, None, :] - wall_points[None, :, :]) ** 2).sum(-1)
-        out[s:s + chunk] = np.sqrt(d2.min(axis=1))
-    return out
+    dist, _ = cKDTree(wall_points).query(coords, k=1)
+    return np.asarray(dist, dtype=np.float64)

@@ -16,11 +16,14 @@ from su2_tpu.driver import Simulation
 def _tiny_sim(turbulent=True):
     if turbulent:
         return g._flagship_sim(jnp.float64, tiny=True)
-    text = g._tiny_cfg_text().replace("KIND_TURB_MODEL= SST",
-                                      "KIND_TURB_MODEL= NONE")
+    import tempfile
+    from su2_tpu import testcase
     from su2_tpu.geometry.structured import channel_mesh
+    text = testcase.cfg_text().replace("KIND_TURB_MODEL= SST",
+                                       "KIND_TURB_MODEL= NONE")
     cfg = Config(text=text)
-    cfg.base_dir = g._COMBUSTION
+    cfg.base_dir = tempfile.mkdtemp(prefix="su2_chunked_")
+    testcase.write_library(cfg.base_dir)
     return Simulation(cfg, dtype=jnp.float64, raw_mesh=channel_mesh(17, 9))
 
 

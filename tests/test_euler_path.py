@@ -16,14 +16,18 @@ from su2_tpu.state import Layout, TSolveParams
 
 
 @pytest.fixture(scope="module")
-def lib(combustion_dir):
-    return cl.load_library(os.path.join(combustion_dir, "test_chem_second.txt"))
+def lib(standin_lib):
+    return standin_lib
 
 
 @pytest.fixture(scope="module")
-def combustion_mesh(combustion_dir):
-    raw = read_su2_mesh(os.path.join(combustion_dir, "mesh_stretched.su2"))
-    return mesh_arrays(build_dual_grid(raw))
+def combustion_mesh():
+    """The stand-in combustor's wall-stretched channel, without the seeded
+    jitter (a smooth stretched mesh, on which median-dual GG is near-exact
+    for linear fields)."""
+    from su2_tpu import testcase
+    return mesh_arrays(build_dual_grid(testcase.graded_channel(41, 21,
+                                                               seed=None)))
 
 
 def _state_rows(lib, lay, t, p, vel, ys):
@@ -173,11 +177,10 @@ def test_venkatakrishnan_limiter_bounds(combustion_mesh):
     assert np.median(ll) > 0.6
 
 
-def test_simulation_explicit_steps(combustion_dir):
+def test_simulation_explicit_steps(standin_dir):
     """End-to-end: 3 explicit steps of the full reactive path on the
-    combustion case (freestream init), residuals finite."""
-    cfg = Config(os.path.join(combustion_dir, "my_combustion_second_chem_PaSR.cfg"),
-                 overrides={"RESTART_SOL": "NO"})
+    stand-in combustor (freestream init), residuals finite."""
+    cfg = Config(os.path.join(standin_dir, "case.cfg"))
     sim = Simulation(cfg)
     u, t, hist, turb = sim.run(niter=3, quiet=True)
     assert np.isfinite(np.asarray(u)).all()

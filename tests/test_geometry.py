@@ -8,9 +8,23 @@ from su2_tpu.geometry.dual_grid import build_dual_grid
 
 
 @pytest.fixture(scope="module")
-def combustion_grid(combustion_dir):
-    mesh = read_su2_mesh(os.path.join(combustion_dir, "mesh_stretched.su2"))
+def combustion_grid(standin_dir):
+    """The stand-in combustor's wall-graded, seed-jittered channel."""
+    mesh = read_su2_mesh(os.path.join(standin_dir, "mesh.su2"))
     return mesh, build_dual_grid(mesh)
+
+
+def test_standin_mesh_read(standin_dir):
+    """The stand-in's .su2 file round-trips through the reader."""
+    from su2_tpu import testcase
+    mesh = read_su2_mesh(os.path.join(standin_dir, "mesh.su2"))
+    ref = testcase.graded_channel(33, 17, seed=0)
+    assert mesh.ndim == 2 and mesh.npoint == 33 * 17
+    assert mesh.nelem == 32 * 16
+    np.testing.assert_array_equal(mesh.elem_nodes, ref.elem_nodes)
+    np.testing.assert_allclose(mesh.coords, ref.coords, rtol=1e-15)
+    assert set(mesh.markers) == {"inlet", "outlet", "lower_wall",
+                                 "upper_wall"}
 
 
 def test_mesh_read(combustion_dir):

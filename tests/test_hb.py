@@ -152,7 +152,7 @@ def test_hb_implicit_single_instance_matches_steady(tmp_path):
     """Implicit HB (round 4) with N=1, Omega=(0,): D == 0 and the
     vmapped implicit instance update must reproduce the production
     implicit trajectory (same physics; edge-layout solver ops instead of
-    the family/pallas fast path, so agreement is to roundoff)."""
+    the family fast path, so agreement is to roundoff)."""
     sim = _build(tmp_path, CFG_IMPL, channel_mesh(13, 9, lx=1.0, ly=0.4))
     drv = hb.HBDriver(sim, n_inst=1, period=1.0, omegas=[0.0])
     assert drv.implicit
@@ -161,7 +161,7 @@ def test_hb_implicit_single_instance_matches_steady(tmp_path):
     ua = np.asarray(u_all)[0]
     ur = np.asarray(u_ref)
     rel = np.abs(ua - ur).max() / np.abs(ur).max()
-    # the HB instance update strips the family/pallas fast paths (edge
+    # the HB instance update strips the family fast paths (edge
     # layout under vmap), so the UNDER-CONVERGED inner FGMRES iterates
     # differ in summation order from the production path; 40 implicit
     # steps accumulate ~5e-6 relative (observed) — gate with margin

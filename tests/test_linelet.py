@@ -104,8 +104,7 @@ def test_linelet_solver_ops_route(setup):
         diag=jnp.asarray(rng.normal(size=(n, v, v)) + 5.0 * np.eye(v)),
         off_ij=jnp.asarray(0.1 * rng.normal(size=(ne, v, v))),
         off_ji=jnp.asarray(0.1 * rng.normal(size=(ne, v, v))))
-    mv, pc, pm, _ = blockcsr.make_solver_ops(mesh, jac, "LINELET",
-                                          linelets=lines)
+    mv, pc = blockcsr.make_solver_ops(mesh, jac, "LINELET", linelets=lines)
     r = jnp.asarray(rng.normal(size=(n, v)))
     from su2_tpu.linalg import krylov
     sol, rel, iters = krylov.fgmres(mv, pc, r, max_iter=30, tol=1e-10)

@@ -99,55 +99,10 @@ def test_sharded_step_uses_neighbor_collectives():
     assert len(ags) == 0, f"{len(ags)} all-gathers in sharded step HLO"
 
 
-# ---------------------------------------------------------------------------
-# Round 5: multi-chip composition with the production tiers
-# ---------------------------------------------------------------------------
-
-def test_sharded_tiled_gradient_matches_roll_path(combustion_dir,
-                                                  monkeypatch):
-    """The shard_map'd tiled gradient sweep (gradients_tiled.
-    _gradient_tiled_rows_sharded, ppermute halo slabs) matches the GSPMD
-    roll path on the SHIPPED combustion mesh over 8 virtual devices —
-    multi-tile per shard (forced small window)."""
-    import os
-    from su2_tpu.config import Config
-    from su2_tpu.driver import Simulation
-    from su2_tpu.ops import gradients
-    from su2_tpu.pallas import gradients_tiled as gt
-
-    cfg = Config(os.path.join(combustion_dir, "my_combustion_no_chem.cfg"))
-    sim = Simulation(cfg, dtype=jnp.float64, ndevices=8)
-    ma = sim.mesh
-    assert ma.n_shards == 8 and ma.stencil_offsets is not None
-    rng = np.random.default_rng(17)
-    q = jnp.asarray(rng.standard_normal((ma.npoint, 4)))
-    from su2_tpu.parallel import sharding as shd
-    (q,) = shd.shard_state(sim.dmesh, q)
-
-    monkeypatch.setenv("SU2_TPU_TILED_GRAD", "0")
-    ref = np.asarray(gradients.weighted_least_squares(ma, q))
-    ref_gg = np.asarray(gradients.green_gauss(ma, q))
-
-    monkeypatch.setenv("SU2_TPU_TILED_GRAD", "1")
-    # force several tiles per 1126-lane shard
-    monkeypatch.setattr(gt, "_TILE_W_CAP", 1024 + 2 * 128)
-    out = np.asarray(gradients.weighted_least_squares(ma, q))
-    out_gg = np.asarray(gradients.green_gauss(ma, q))
-    for a, b in ((out, ref), (out_gg, ref_gg)):
-        sc = max(np.abs(b).max(), 1.0)
-        np.testing.assert_allclose(a, b, rtol=1e-11, atol=1e-13 * sc)
-    # rows form too (the production fast path at >= 200k nodes)
-    rows = gradients.gradient_rows(ma, q, "WEIGHTED_LEAST_SQUARES")
-    assert rows is not None
-    np.testing.assert_allclose(
-        np.asarray(gradients.rows_to_grad(rows, 4, 2)), ref,
-        rtol=1e-11, atol=1e-13 * max(np.abs(ref).max(), 1.0))
-
-
 def test_sharded_mesh_args_multistep_matches_constant_closure(
-        combustion_dir, monkeypatch):
-    """Round-5 verdict item 1(a): the mesh-as-arguments tier composes with
-    sharding — SU2_TPU_MESH_ARGS=1 on an 8-device sim must match the
+        standin_dir, monkeypatch):
+    """The mesh-as-arguments tier composes with sharding —
+    SU2_TPU_MESH_ARGS=1 on an 8-device sim of the stand-in must match the
     sharded constant-closure multistep (the buffers are committed with
     NamedShardings, so jit infers in_shardings and GSPMD partitions the
     traced rolls identically)."""
@@ -155,7 +110,7 @@ def test_sharded_mesh_args_multistep_matches_constant_closure(
     from su2_tpu.config import Config
     from su2_tpu.driver import Simulation
 
-    cfg = Config(os.path.join(combustion_dir, "my_combustion_no_chem.cfg"))
+    cfg = Config(os.path.join(standin_dir, "case.cfg"))
 
     def run(mode):
         monkeypatch.setenv("SU2_TPU_MESH_ARGS", mode)
@@ -175,249 +130,58 @@ def test_sharded_mesh_args_multistep_matches_constant_closure(
     assert np.abs(rms_a - rms_c).max() < 1e-9
 
 
-def test_sharded_tiled_solve_matches_xla_sweep(combustion_dir, monkeypatch):
-    """ShardedTiledStencilOps (shard_map'd tiled SGS sweep + matvec,
-    ppermute halo slabs) matches the XLA multicolor sweep / matvec on a
-    synthetic stencil system over the sharded combustion mesh (8 virtual
-    devices, f64, mixed=False)."""
-    from su2_tpu.config import Config
-    from su2_tpu.driver import Simulation
-    from su2_tpu.linalg import blockcsr
-    from su2_tpu.pallas import stencil_solve as stks
-    from su2_tpu.parallel import sharding as shd
-
-    import os
-    cfg = Config(os.path.join(combustion_dir, "my_combustion_no_chem.cfg"))
-    sim = Simulation(cfg, dtype=jnp.float64, ndevices=8)
-    ma = sim.mesh
-    n = ma.npoint
-    k = len(ma.stencil_offsets)
-    v = 2
-    ncolor = len(sim.scfg.color_masks)
-    rng = np.random.default_rng(23)
-    sel = rng.standard_normal((k, n, v, v)) * 0.1
-    for kk, o in enumerate(ma.stencil_offsets):
-        p = np.arange(n)
-        sel[kk, (p + o < 0) | (p + o >= n)] = 0.0
-    diag = rng.standard_normal((n, v, v)) * 0.1 \
-        + 3.0 * np.eye(v)[None]
-    r = rng.standard_normal((n, v))
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    sel_j = jax.device_put(jnp.asarray(sel),
-                           NamedSharding(sim.dmesh, P(None, "cells")))
-    diag_j, r_j = shd.shard_state(sim.dmesh, jnp.asarray(diag),
-                                  jnp.asarray(r))
-    dinv = blockcsr.block_diag_inv(diag_j)
-    jac = blockcsr.BlockJacobian(diag=diag_j, off_ij=None, off_ji=None)
-    z_ref = np.asarray(blockcsr.multicolor_sgs_apply(
-        ma, jac, dinv, sim.scfg.color_masks, r_j, offdiag=sel_j))
-    w_ref = np.asarray(blockcsr._bmv(diag_j, jnp.asarray(z_ref))
-                       + blockcsr._offdiag_apply(ma, sel_j, jnp.asarray(z_ref)))
-
-    monkeypatch.setenv("SU2_TPU_TILED_SOLVE", "1")
-    plan = stks.tile_plan_sharded(ma, v, ncolor, 8, False)
-    assert plan is not None
-    ops = stks.ShardedTiledStencilOps(ma, sel_j, dinv, diag_j,
-                                      sim.scfg.color_masks, plan,
-                                      mixed=False)
-    z, w = ops.precond_matvec(r_j)
-    scz = max(np.abs(z_ref).max(), 1.0)
-    np.testing.assert_allclose(np.asarray(z), z_ref, rtol=1e-10,
-                               atol=1e-12 * scz)
-    scw = max(np.abs(w_ref).max(), 1.0)
-    np.testing.assert_allclose(np.asarray(w), w_ref, rtol=1e-10,
-                               atol=1e-12 * scw)
-    z2 = ops.precond(r_j)
-    np.testing.assert_allclose(np.asarray(z2), z_ref, rtol=1e-10,
-                               atol=1e-12 * scz)
 
 
-def test_sharded_windowed_edge_matches_roll_path(combustion_dir,
-                                                 monkeypatch):
-    """The shard_map'd windowed explicit edge kernel
-    (edge_fused._edge_win_sharded, ppermute halo slabs + halo sanitation)
-    matches the GSPMD roll-path assembly on the shipped combustion mesh
-    over 8 virtual devices (full fused_interior_terms physics: AUSM +
-    viscous + Stefan-Maxwell + SST closures + spectral radii)."""
+def test_multichip_standin_case(standin_dir):
+    """8 virtual devices vs 1 on the stand-in combustor (561 nodes, padded
+    to 568): the pad rows stay finite and the real rows match."""
     import os
     from su2_tpu.config import Config
     from su2_tpu.driver import Simulation
-    from su2_tpu.ops import viscous as vis
-    from su2_tpu.pallas import edge_fused
-    from su2_tpu.pallas import edge_kernels as ek
-    from su2_tpu.solvers import ns
-    from su2_tpu import state as st
 
-    cfg = Config(os.path.join(combustion_dir, "my_combustion_no_chem.cfg"))
-    sim = Simulation(cfg, dtype=jnp.float64, ndevices=8)
-    assert sim.mesh.fam_offsets is not None
-    q0, mu_t0, grad_k0, sigma_k0 = sim.initial_turb_state()
-    u, v, _ = st.cons2prim(sim.lib, sim.lay, sim.u0, sim.t0, sim.tparams,
-                           turb_ke=q0[:, 0])
-    turb = vis.TurbFlowData(tke=q0[:, 0], mu_t=mu_t0,
-                            grad_tke=grad_k0[:, 0, :], sigma_k=sigma_k0)
-
-    def assemble(windowed):
-        monkeypatch.setenv("SU2_TPU_WIN_EDGE", "1" if windowed else "0")
-        ek.set_edge_kernel_mode(windowed)
-        try:
-            if windowed:
-                assert edge_fused._edge_win_plan_sharded(sim.mesh) \
-                    is not None
-            res, wm, trans, nonphys, lams = ns.ns_assemble(
-                sim.lib, sim.lay, sim.mesh, sim.params, sim.bcs, v,
-                turb=turb, omega_turb=q0[:, 1],
-                sigma_k_edge=sigma_k0[sim.mesh.edges[:, 0]],
-                want_lambdas=True)
-        finally:
-            ek.set_edge_kernel_mode(False)
-        return np.asarray(res)
-
-    r0 = assemble(False)
-    r1 = assemble(True)
-    assert not np.isnan(r1).any()
-    scale = np.abs(r0).max(axis=0)
-    for k in range(r0.shape[1]):
-        assert np.abs(r1[:, k] - r0[:, k]).max() <= 1e-9 * max(scale[k], 1e-6), k
-
-
-def test_sharded_fused_coupled_step_matches_xla(combustion_dir,
-                                                monkeypatch):
-    """Full composed multi-chip production step: node_state (shard_map
-    pointwise), windowed edge kernel (ppermute halos), sharded tiled
-    gradients — one coupled RANS step on the shipped combustion mesh over
-    8 virtual devices vs the sharded XLA step."""
-    import os
-    from su2_tpu.config import Config
-    from su2_tpu.driver import Simulation
-    from su2_tpu.pallas import edge_kernels as ek
-    from su2_tpu.pallas.context import set_pallas_shards
-    from su2_tpu import state as st
-
-    cfg = Config(os.path.join(combustion_dir, "my_combustion_no_chem.cfg"))
-    sim0 = Simulation(cfg, dtype=jnp.float64, ndevices=8)
-    q0 = sim0.initial_turb_state()
-    o0 = sim0._step(sim0.u0, sim0.t0, *q0, jnp.asarray(False))
-
-    monkeypatch.setenv("SU2_TPU_WIN_EDGE", "1")
-    monkeypatch.setenv("SU2_TPU_TILED_GRAD", "1")
-    set_pallas_shards(8)
-    st.set_node_state_mode("pallas")
-    ek.set_edge_kernel_mode(True)
-    try:
-        sim1 = Simulation(cfg, dtype=jnp.float64, ndevices=8)
-        q1 = sim1.initial_turb_state()
-        o1 = sim1._step(sim1.u0, sim1.t0, *q1, jnp.asarray(False))
-    finally:
-        set_pallas_shards(1)
-        st.set_node_state_mode("xla")
-        ek.set_edge_kernel_mode(False)
-    u0n, u1n = np.asarray(o0[0]), np.asarray(o1[0])
-    q0n, q1n = np.asarray(o0[2]), np.asarray(o1[2])
-    assert not np.isnan(u1n).any() and not np.isnan(q1n).any()
-    sc = np.abs(u0n).max(axis=0)
-    sc[sc == 0] = 1.0
-    assert (np.abs(u1n - u0n) / sc[None, :]).max() < 1e-9
-    scq = np.abs(q0n).max(axis=0)
-    assert (np.abs(q1n - q0n) / scq[None, :]).max() < 1e-9
-
-
-def test_sharded_chem_source_matches_unsharded(combustion_dir):
-    """The shard_map-wrapped chemistry-source kernel (pointwise, zero
-    communication) matches the plain kernel bitwise."""
-    import os
-    from su2_tpu.chemistry import library as cl
-    from su2_tpu.pallas import chem_source as pcs
-    from su2_tpu.pallas.context import set_pallas_shards
-    from su2_tpu.parallel import sharding as shd
-    from jax.sharding import Mesh
-
-    lib = cl.load_library(os.path.join(combustion_dir,
-                                       "test_chem_second.txt"),
-                          None, jnp.float64)
-    lib = jax.tree_util.tree_map(
-        lambda x: jnp.asarray(x) if hasattr(x, "dtype") else x, lib)
-
-    class PRM:
-        pasr = True
-        pasr_lb = 0.2
-        c_mu = 0.09
-
-    rng = np.random.default_rng(5)
-    n = 1024
-    t = jnp.asarray(rng.uniform(400.0, 2000.0, n))
-    rho = jnp.asarray(rng.uniform(0.5, 2.0, n))
-    ys = rng.uniform(0, 1, (n, lib.nspecies))
-    ys = jnp.asarray(ys / ys.sum(axis=1, keepdims=True))
-    omt = jnp.asarray(rng.uniform(10.0, 1000.0, n))
-    ref = np.asarray(pcs.chem_source(lib, PRM, t, rho, ys, omt))
-    dmesh = Mesh(np.array(jax.devices()[:8]), axis_names=("cells",))
-    t8, rho8, ys8, omt8 = shd.shard_state(dmesh, t, rho, ys, omt)
-    set_pallas_shards(8)
-    try:
-        out = np.asarray(pcs.chem_source(lib, PRM, t8, rho8, ys8, omt8))
-    finally:
-        set_pallas_shards(1)
-    # not bitwise: the one-hot table contractions reduce over a different
-    # tile shape per shard, so XLA's reduction tree regroups (f64 rounding)
-    sc = max(np.abs(ref).max(), 1e-30)
-    np.testing.assert_allclose(out, ref, rtol=1e-9, atol=1e-12 * sc)
-
-
-@pytest.mark.slow
-def test_sharded_production_tiers_565k_matches_single_device(
-        combustion_dir, monkeypatch):
-    """Round-5 verdict item 1 done-criterion: 8-dev == 1-dev at 565k
-    nodes THROUGH THE PRODUCTION TIERS (mesh-as-arguments multistep +
-    windowed edge kernel + tiled gradients + tiled SGS solve + pointwise
-    pallas kernels, ppermute halo slabs).  Measured in-round: max rel
-    state delta 1.1e-16 (one f64 ulp), turb 1e-21, RMS rows identical to
-    1.7e-18 — the shard_map'd kernels are owner-region exact.  ~10 min
-    with a warm XLA cache."""
-    import os
-    from su2_tpu.config import Config
-    from su2_tpu.driver import Simulation
-    from su2_tpu.io.mesh import read_su2_mesh
-    from su2_tpu.adapt import refine_full
-    from su2_tpu.pallas.context import set_pallas_shards
-    from su2_tpu.pallas import edge_kernels as ek
-    from su2_tpu import state as st
-
-    monkeypatch.setenv("SU2_TPU_WIN_EDGE", "1")
-    monkeypatch.setenv("SU2_TPU_TILED_GRAD", "1")
-    monkeypatch.setenv("SU2_TPU_TILED_SOLVE", "1")
-    cfg = Config(os.path.join(combustion_dir,
-                              "my_combustion_second_chem_PaSR.cfg"),
-                 overrides={"RESTART_SOL": "NO"})
-    raw = read_su2_mesh(cfg.resolve(cfg.mesh_filename))
-    for _ in range(3):
-        raw, _, _ = refine_full(raw)
-    assert raw.npoint >= 565_000
-
-    def run(nd):
-        set_pallas_shards(nd or 1)
-        st.set_node_state_mode("pallas")
-        ek.set_edge_kernel_mode(True)
-        try:
-            sim = Simulation(cfg, dtype=jnp.float64, ndevices=nd,
-                             raw_mesh=raw)
-            q0 = sim.initial_turb_state()
-            ig = jnp.zeros((1,), bool)
-            carry, ys = sim.rans_multistep(sim.u0, sim.t0, *q0, ig)
-            jax.block_until_ready(carry[0])
-        finally:
-            set_pallas_shards(1)
-            st.set_node_state_mode("xla")
-            ek.set_edge_kernel_mode(False)
-        return (np.asarray(carry[0]), np.asarray(carry[2]),
-                np.asarray(ys[0]))
-
-    u8, q8, rms8 = run(8)
-    u1, q1, rms1 = run(None)
-    n = u1.shape[0]
+    cfg = Config(os.path.join(standin_dir, "case.cfg"))
+    sim1 = Simulation(cfg, dtype=jnp.float64)
+    sim8 = Simulation(cfg, dtype=jnp.float64, ndevices=8)
+    assert sim8.mesh.n_shards == 8 and sim8.mesh.npoint > sim1.mesh.npoint
+    o1 = sim1._step(sim1.u0, sim1.t0, *sim1.initial_turb_state(),
+                    jnp.asarray(False))
+    o8 = sim8._step(sim8.u0, sim8.t0, *sim8.initial_turb_state(),
+                    jnp.asarray(False))
+    u1 = sim1.to_file_order(o1[0])
+    u8 = sim8.to_file_order(o8[0])
+    assert np.isfinite(np.asarray(o8[0])).all()
     sc = np.abs(u1).max(axis=0)
+    lay = sim1.lay
+    sc[lay.RHOVX:lay.RHOVX + lay.ndim] = sc[lay.RHOVX:lay.RHOVX
+                                            + lay.ndim].max()
     sc[sc == 0] = 1.0
-    assert (np.abs(u8[:n] - u1) / sc[None, :]).max() < 1e-12
-    scq = np.abs(q1).max(axis=0)
-    assert (np.abs(q8[:n] - q1) / scq[None, :]).max() < 1e-12
-    np.testing.assert_allclose(rms8, rms1, rtol=1e-12)
+    np.testing.assert_array_less(np.abs(u8 - u1) / sc[None, :], 1e-10)
+    # residual RMS rows: the transverse-momentum row is at roundoff level
+    r1, r8 = np.asarray(o1[6]), np.asarray(o8[6])
+    np.testing.assert_allclose(r8, r1, rtol=1e-9, atol=1e-12 * r1.max())
+
+
+def test_sharded_step_with_node_kernel(standin_dir):
+    """The node-state kernel runs per shard under shard_map inside the
+    sharded coupled step (interpreted here) and matches the XLA chain."""
+    import functools
+    import os
+    from su2_tpu.config import Config
+    from su2_tpu.driver import Simulation
+    from su2_tpu.pallas import node_state as nst
+
+    cfg = Config(os.path.join(standin_dir, "case.cfg"))
+    sim8 = Simulation(cfg, dtype=jnp.float64, ndevices=8)
+    args = (sim8.u0, sim8.t0, *sim8.initial_turb_state(), jnp.asarray(False))
+    ref = jax.jit(sim8._make_rans_step())(*args)
+    sim8.node_kernel = functools.partial(nst.node_state, mesh=sim8.dmesh,
+                                         interpret=True)
+    got = jax.jit(sim8._make_rans_step())(*args)
+    lay = sim8.lay
+    u_ref, u_got = np.asarray(ref[0]), np.asarray(got[0])
+    sc = np.abs(u_ref).max(axis=0)
+    sc[lay.RHOVX:lay.RHOVX + lay.ndim] = sc[lay.RHOVX:lay.RHOVX
+                                            + lay.ndim].max()
+    sc[sc == 0] = 1.0
+    np.testing.assert_array_less(np.abs(u_got - u_ref) / sc[None, :], 1e-11)
+    assert len(got[0].sharding.device_set) == 8

@@ -109,143 +109,3 @@ def test_sst_step_family_matches_gather_path():
                                    rtol=1e-9, atol=1e-12)
 
 
-def test_sst_step_fused_assembly_matches_xla():
-    """The one-launch fused assembly path (pallas/sst_assemble.py +
-    lane-space solve) must reproduce the XLA stencil path: same q_new and
-    rms to roundoff, including strong wall rows and weak-BC faces."""
-    import dataclasses
-    import jax.numpy as jnp
-    from su2_tpu.geometry.dual_grid import build_dual_grid
-    from su2_tpu.geometry.mesh_data import mesh_arrays
-    from su2_tpu.state import Layout
-    from su2_tpu.linalg import blockcsr
-    from tests.test_stencil import _quad_grid
-
-    mesh = _quad_grid(9, 7)
-    grid = build_dual_grid(mesh)
-    ma = mesh_arrays(grid)
-    assert ma.gg_snormal is not None
-
-    lay = Layout(2, 3)
-    n = ma.npoint
-    rng = np.random.default_rng(23)
-    q = jnp.asarray(np.abs(rng.normal(1.0, 0.2, (n, 2))) + 0.1)
-    v = jnp.asarray(np.abs(rng.normal(1.0, 0.1, (n, lay.nprim))) + 0.5)
-    flow_grad = jnp.asarray(rng.normal(0, 0.1, (n, lay.nprim - 2, 2)))
-    mu = jnp.asarray(np.full(n, 1.8e-5))
-    mu_t = jnp.asarray(np.abs(rng.normal(1e-4, 1e-5, n)))
-    strain = jnp.asarray(np.abs(rng.normal(1.0, 0.2, n)))
-    dist = jnp.asarray(np.abs(rng.normal(0.5, 0.1, n)) + 0.01)
-    rho_old = v[:, lay.PRHO]
-    dt = jnp.asarray(np.full(n, 1e-4))
-
-    # synthetic BCs: a strong wall strip and a weak outlet strip
-    class _BC:
-        def __init__(self, kind, nodes, nn=None, normal=None):
-            self.kind = kind
-            self.nodes = jnp.asarray(nodes)
-            self.nn = None if nn is None else jnp.asarray(nn)
-            self.normal = normal
-    wall_nodes = np.arange(0, n, 7)
-    out_nodes = np.arange(3, n, 11)
-    bcs = (_BC("isothermal_wall", wall_nodes, nn=(wall_nodes + 1) % n),
-           _BC("supersonic_outlet", out_nodes,
-               normal=jnp.asarray(rng.normal(0, 1, (len(out_nodes), 2)))))
-
-    colors = blockcsr.greedy_coloring(np.asarray(ma.node_nbrs))
-    masks = tuple(jnp.asarray(colors == c) for c in range(colors.max() + 1))
-    scfg = sst.SSTConfig(grad_method="WEIGHTED_LEAST_SQUARES",
-                         linear_prec="LU_SGS", color_masks=masks)
-    args = (lay, ma, scfg, bcs, q, v, flow_grad, mu, mu_t,
-            strain, dist, rho_old, dt, 1e-3, 10.0)
-    out_x = sst.sst_step(*args)
-    sst.set_assemble_mode("pallas")
-    try:
-        out_p = sst.sst_step(*args)
-    finally:
-        sst.set_assemble_mode("xla")
-    np.testing.assert_allclose(np.asarray(out_p[0]), np.asarray(out_x[0]),
-                               rtol=1e-9, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(out_p[1]), np.asarray(out_x[1]),
-                               rtol=1e-9, atol=1e-12)
-    for key in ("mu_t", "sigma_k", "f1"):
-        np.testing.assert_allclose(np.asarray(out_p[2][key]),
-                                   np.asarray(out_x[2][key]),
-                                   rtol=1e-9, atol=1e-12)
-
-
-def test_sst_step_tiled_assembly_matches_fused(monkeypatch):
-    """The round-4 streaming tier (tiled assembly + tiled mixed solve,
-    forced by failing the full-field VMEM gates with a tiny tile plan)
-    must reproduce the full-field fused path BITWISE: identical windows
-    of identical arithmetic, owner-region writes only."""
-    import jax.numpy as jnp
-    from su2_tpu.geometry.dual_grid import build_dual_grid
-    from su2_tpu.geometry.mesh_data import mesh_arrays
-    from su2_tpu.state import Layout
-    from su2_tpu.linalg import blockcsr
-    from su2_tpu.pallas import sst_assemble as sstasm
-    from su2_tpu.pallas import stencil_solve as stks
-    from tests.test_stencil import _quad_grid
-
-    mesh = _quad_grid(23, 17)
-    grid = build_dual_grid(mesh)
-    ma = mesh_arrays(grid)
-    assert ma.gg_snormal is not None
-
-    lay = Layout(2, 3)
-    n = ma.npoint
-    rng = np.random.default_rng(29)
-    q = jnp.asarray(np.abs(rng.normal(1.0, 0.2, (n, 2))) + 0.1,
-                    jnp.float32)
-    v = jnp.asarray(np.abs(rng.normal(1.0, 0.1, (n, lay.nprim))) + 0.5,
-                    jnp.float32)
-    flow_grad = jnp.asarray(rng.normal(0, 0.1, (n, lay.nprim - 2, 2)),
-                            jnp.float32)
-    mu = jnp.asarray(np.full(n, 1.8e-5), jnp.float32)
-    mu_t = jnp.asarray(np.abs(rng.normal(1e-4, 1e-5, n)), jnp.float32)
-    strain = jnp.asarray(np.abs(rng.normal(1.0, 0.2, n)), jnp.float32)
-    dist = jnp.asarray(np.abs(rng.normal(0.5, 0.1, n)) + 0.01, jnp.float32)
-    rho_old = v[:, lay.PRHO]
-    dt = jnp.asarray(np.full(n, 1e-4), jnp.float32)
-
-    colors = blockcsr.greedy_coloring(np.asarray(ma.node_nbrs))
-    masks = tuple(jnp.asarray(colors == c) for c in range(colors.max() + 1))
-    scfg = sst.SSTConfig(grad_method="WEIGHTED_LEAST_SQUARES",
-                         linear_prec="LU_SGS", color_masks=masks)
-    args = (lay, ma, scfg, (), q, v, flow_grad, mu, mu_t,
-            strain, dist, rho_old, dt, 1e-3, 10.0)
-    sst.set_assemble_mode("pallas")
-    try:
-        # reference: full-field assembly + the per-iteration MIXED solve
-        # (bf16 sweep + f32 matvec inside krylov.fgmres) — the exact
-        # arithmetic the tiled tier streams
-        monkeypatch.setattr(stks, "fgmres_supported",
-                            lambda *a, **k: False)
-        out_full = sst.sst_step(*args)
-
-        # force the streaming tier with small tiles (multiple real tiles
-        # on this mesh)
-        maxoff = max(abs(int(o)) for o in ma.stencil_offsets)
-        ncolor = len(masks)
-        npad = -(-n // 128) * 128
-
-        def plan(T, depth):
-            H = -(-depth * maxoff // 128) * 128
-            ntiles = -(-npad // T)
-            return T, H, ntiles, ntiles * T + 2 * H
-
-        monkeypatch.setattr(sstasm, "supported", lambda m: False)
-        monkeypatch.setattr(sstasm, "tile_plan", lambda m: plan(128, 1))
-        monkeypatch.setattr(stks, "sgs_matvec_mixed_supported",
-                            lambda *a, **k: False)
-        monkeypatch.setattr(stks, "tile_plan",
-                            lambda m, v_, nc, it, wm: plan(128, 2 * nc))
-        out_tiled = sst.sst_step(*args)
-    finally:
-        sst.set_assemble_mode("xla")
-
-    np.testing.assert_array_equal(np.asarray(out_tiled[0]),
-                                  np.asarray(out_full[0]))
-    np.testing.assert_array_equal(np.asarray(out_tiled[1]),
-                                  np.asarray(out_full[1]))

@@ -148,47 +148,6 @@ def test_stencil_sgs_matches_gather_path():
                                rtol=1e-11, atol=1e-13)
 
 
-def test_stencil_solve_ops_match_xla_path():
-    """The fused pallas sweep (pallas/stencil_solve.py) must reproduce the
-    gather/roll XLA matvec and multicolor SGS exactly (interpret mode off
-    TPU)."""
-    mesh = _quad_grid(6, 7)
-    grid = build_dual_grid(mesh)
-    ma = mesh_arrays(grid)
-    assert ma.stencil_sel is not None
-
-    v = 2
-    rng = np.random.default_rng(5)
-    jac = blockcsr.BlockJacobian(
-        diag=jnp.asarray(rng.normal(0, .2, (ma.npoint, v, v))
-                         + 3 * np.eye(v)),
-        off_ij=jnp.asarray(rng.normal(0, .2, (ma.nedge, v, v))),
-        off_ji=jnp.asarray(rng.normal(0, .2, (ma.nedge, v, v))))
-    r = jnp.asarray(rng.normal(0, 1, (ma.npoint, v)))
-    colors = blockcsr.greedy_coloring(np.asarray(ma.node_nbrs))
-    masks = [jnp.asarray(colors == c) for c in range(colors.max() + 1)]
-
-    mv, pc, pm, _ = blockcsr.make_solver_ops(ma, jac, "LU_SGS", masks)
-    assert pm is not None, "stencil pallas path not selected"
-
-    want_mv = blockcsr.matvec(ma, jac, r)
-    np.testing.assert_allclose(np.asarray(mv(r)), np.asarray(want_mv),
-                               rtol=1e-11, atol=1e-13)
-
-    dinv = blockcsr.block_jacobi_factor(jac)
-    want_z = blockcsr.multicolor_sgs_apply(ma, jac, dinv, masks, r)
-    z = pc(r)
-    np.testing.assert_allclose(np.asarray(z), np.asarray(want_z),
-                               rtol=1e-11, atol=1e-13)
-
-    z2, w2 = pm(r)
-    np.testing.assert_allclose(np.asarray(z2), np.asarray(want_z),
-                               rtol=1e-11, atol=1e-13)
-    want_w = blockcsr.matvec(ma, jac, want_z)
-    np.testing.assert_allclose(np.asarray(w2), np.asarray(want_w),
-                               rtol=1e-11, atol=1e-13)
-
-
 def test_stencil_gradients_match_gather_path():
     """Roll-based WLS / Green-Gauss (precomputed per-offset geometry in
     mesh_data) must match the gather-based formulations."""
@@ -227,139 +186,3 @@ def test_driver_renumbers_combustion_mesh(combustion_dir):
     assert 0 < len(offs) <= stn.MAX_OFFSETS
 
 
-def test_stencil_fused_fgmres_matches_krylov():
-    """The one-launch FGMRES kernel (stencil_solve._fgmres_call) replicates
-    krylov.fgmres arithmetic exactly (same MGS / Givens / back-substitution
-    order), so the solutions must agree to roundoff, and make_solver_ops
-    must expose it as the 4th return on the stencil path."""
-    mesh = _quad_grid(6, 7)
-    grid = build_dual_grid(mesh)
-    ma = mesh_arrays(grid)
-    assert ma.stencil_sel is not None
-
-    v = 2
-    rng = np.random.default_rng(13)
-    jac = blockcsr.BlockJacobian(
-        diag=jnp.asarray(rng.normal(0, .2, (ma.npoint, v, v))
-                         + 3 * np.eye(v)),
-        off_ij=jnp.asarray(rng.normal(0, .2, (ma.nedge, v, v))),
-        off_ji=jnp.asarray(rng.normal(0, .2, (ma.nedge, v, v))))
-    b = jnp.asarray(rng.normal(0, 1, (ma.npoint, v)))
-    colors = blockcsr.greedy_coloring(np.asarray(ma.node_nbrs))
-    masks = [jnp.asarray(colors == c) for c in range(colors.max() + 1)]
-
-    mv, pc, pm, solve = blockcsr.make_solver_ops(ma, jac, "LU_SGS", masks)
-    assert solve is not None, "fused FGMRES path not selected"
-
-    for m, tol in ((5, 1e-6), (3, 1e-12)):
-        want_x, want_rel, want_it = krylov.fgmres(mv, pc, b, max_iter=m,
-                                                  tol=tol,
-                                                  precond_matvec=pm)
-        x, rel, it = solve(b, m, tol)
-        np.testing.assert_allclose(np.asarray(x), np.asarray(want_x),
-                                   rtol=1e-9, atol=1e-12)
-        np.testing.assert_allclose(float(rel), float(want_rel), rtol=1e-8)
-        assert int(it) == int(want_it)
-
-    # overflow-safe pow2 scaling survives the fused path too
-    big = b * 1e18
-    x, rel, _ = solve(big.astype(b.dtype), 5, 1e-6)
-    want_x, want_rel, _ = krylov.fgmres(mv, pc, big, max_iter=5, tol=1e-6,
-                                        precond_matvec=pm)
-    np.testing.assert_allclose(np.asarray(x), np.asarray(want_x),
-                               rtol=1e-9, atol=1e-3)
-
-
-def test_stencil_mixed_fused_fgmres_matches_krylov():
-    """Mixed-tier one-launch FGMRES (bf16 sweep sel + f32 matvec sel) must
-    replicate the XLA path it replaces: krylov.fgmres with the bf16-sel
-    SGS preconditioner and the full-precision matvec."""
-    from su2_tpu.pallas import stencil_solve as stks
-
-    mesh = _quad_grid(6, 7)
-    grid = build_dual_grid(mesh)
-    ma = mesh_arrays(grid)
-    assert ma.stencil_sel is not None
-
-    v = 3
-    rng = np.random.default_rng(17)
-    f32 = jnp.float32
-    jac = blockcsr.BlockJacobian(
-        diag=jnp.asarray(rng.normal(0, .2, (ma.npoint, v, v))
-                         + 3 * np.eye(v), f32),
-        off_ij=jnp.asarray(rng.normal(0, .2, (ma.nedge, v, v)), f32),
-        off_ji=jnp.asarray(rng.normal(0, .2, (ma.nedge, v, v)), f32))
-    b = jnp.asarray(rng.normal(0, 1, (ma.npoint, v)), f32)
-    colors = blockcsr.greedy_coloring(np.asarray(ma.node_nbrs))
-    masks = [jnp.asarray(colors == c) for c in range(colors.max() + 1)]
-    dinv = blockcsr.block_jacobi_factor(jac)
-    sel = blockcsr.gather_offdiag(ma, jac)
-
-    ops = stks.StencilSolveOps(ma, sel, dinv, jac.diag, masks,
-                               sel_dtype=jnp.bfloat16)
-    assert ops.mixed and ops.sel_f32_t is not None
-
-    mv = lambda x: blockcsr.matvec(ma, jac, x, sel)
-    # per-iteration mixed (z, A z) kernel == (bf16 sweep, f32 matvec) pair
-    r = jnp.asarray(np.random.default_rng(19).normal(0, 1,
-                                                     (ma.npoint, v)), f32)
-    z_pm, w_pm = ops.precond_matvec_mixed(r)
-    np.testing.assert_allclose(np.asarray(z_pm), np.asarray(ops.precond(r)),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(w_pm), np.asarray(mv(z_pm)),
-                               rtol=1e-5, atol=1e-6)
-
-    want_x, want_rel, want_it = krylov.fgmres(mv, ops.precond, b,
-                                              max_iter=5, tol=1e-6)
-    x, rel, it = ops.fgmres_mixed(b, 5, 1e-6)
-    np.testing.assert_allclose(np.asarray(x), np.asarray(want_x),
-                               rtol=2e-5, atol=2e-5)
-    assert int(it) == int(want_it)
-    # the solve still satisfies the f32 linear tolerance with the exact mv
-    resid = np.linalg.norm(np.asarray(mv(x)) - np.asarray(b)) \
-        / np.linalg.norm(np.asarray(b))
-    assert resid < 5e-4
-
-
-def test_stencil_bf16_precond_mode():
-    """bf16-sel preconditioner mode: one-launch SGS sweep from bf16 blocks
-    (quality-only), f32 matvec untouched.  The sweep must agree with the
-    XLA multicolor SGS evaluated on bf16-rounded off-diagonal blocks."""
-    from su2_tpu.pallas import stencil_solve as stks
-
-    mesh = _quad_grid(6, 7)
-    grid = build_dual_grid(mesh)
-    ma = mesh_arrays(grid)
-    assert ma.stencil_sel is not None
-
-    v = 3
-    rng = np.random.default_rng(11)
-    f32 = jnp.float32
-    jac = blockcsr.BlockJacobian(
-        diag=jnp.asarray(rng.normal(0, .2, (ma.npoint, v, v))
-                         + 3 * np.eye(v), f32),
-        off_ij=jnp.asarray(rng.normal(0, .2, (ma.nedge, v, v)), f32),
-        off_ji=jnp.asarray(rng.normal(0, .2, (ma.nedge, v, v)), f32))
-    r = jnp.asarray(rng.normal(0, 1, (ma.npoint, v)), f32)
-    colors = blockcsr.greedy_coloring(np.asarray(ma.node_nbrs))
-    masks = [jnp.asarray(colors == c) for c in range(colors.max() + 1)]
-    dinv = blockcsr.block_jacobi_factor(jac)
-    sel = blockcsr.gather_offdiag(ma, jac)
-
-    ops = stks.StencilSolveOps(ma, sel, dinv, jac.diag, masks,
-                               sel_dtype=jnp.bfloat16)
-    assert ops.mixed
-    z = ops.precond(r)
-
-    sel_rounded = sel.astype(jnp.bfloat16).astype(f32)
-    want = blockcsr.multicolor_sgs_apply(ma, jac, dinv, masks, r,
-                                         offdiag=sel_rounded)
-    np.testing.assert_allclose(np.asarray(z), np.asarray(want),
-                               rtol=2e-5, atol=2e-5)
-    # and it is a usable FGMRES preconditioner: the solve still hits the
-    # f32 linear tolerance with the full-precision matvec
-    mv = lambda x: blockcsr.matvec(ma, jac, x, sel)
-    x, rel, _ = krylov.fgmres(mv, ops.precond, r, max_iter=10, tol=1e-5)
-    resid = np.linalg.norm(np.asarray(mv(x) - r)) / np.linalg.norm(
-        np.asarray(r))
-    assert resid < 1e-4

@@ -23,8 +23,12 @@ from su2_tpu.state import Layout
 
 
 @pytest.fixture(scope="module")
-def airlib(flatplate_dir):
-    return cl.load_library(os.path.join(flatplate_dir, "test_air.txt"))
+def airlib(tmp_path_factory):
+    """An inert 3-species library (O2, H2O, CO2) from su2_tpu.testcase."""
+    from su2_tpu import testcase
+    d = tmp_path_factory.mktemp("lib3")
+    return cl.load_library(testcase.write_library(
+        str(d), species=("O2", "H2O", "CO2")))
 
 
 def _random_state(lib, lay, n, seed=3):

@@ -78,7 +78,7 @@ def test_make_solver_ops_wave_kinds():
     offsets = (-9, -8, -7, -1, 1, 7, 8, 9)
     mesh = _Mesh(n, offsets)
     sel, diag, r = _family_system(n, v, offsets, seed=3)
-    mv, pc, pm, solve = blockcsr.make_solver_ops_fam(
+    mv, pc = blockcsr.make_solver_ops_fam(
         mesh, diag, sel, "LU_SGS_WAVE")
     z = np.asarray(pc(r))
     pc_host = seq_sgs.fam_preconditioner(mesh, v)
