@@ -1,12 +1,8 @@
 """Boundary (small static index set) gather/scatter.
 
-Marker node lists are static host-side numpy arrays.  Index sets that are
-arithmetic progressions in the node order (walls are contiguous runs,
-inflow/outflow columns sit at a fixed row stride on structured-ordered
-meshes) take slice and pad+add forms: an elementwise pad+add, unlike
-``.at[idx].add`` (a scatter), is partitioned by GSPMD without
-all-gathering a sharded operand, and fuses with its consumer on one
-device.  Every other index set is plain indexing and ``.at[]`` updates.
+Marker node lists are static host-side numpy arrays; these helpers are
+plain indexing and ``.at[]`` updates, kept as one place for the boundary
+code's gathers and scatters.
 
 Reference semantics: per-marker vertex loops, e.g. BC loops in
 SU2_CFD/src/solver_direct_reactive.cpp:2881-4129.
@@ -14,182 +10,24 @@ SU2_CFD/src/solver_direct_reactive.cpp:2881-4129.
 
 from __future__ import annotations
 
-import numpy as np
-
 import jax
-import jax.numpy as jnp
-
-
-def _static_idx(idx):
-    """Return idx as a host numpy array if it is trace-time static."""
-    if isinstance(idx, np.ndarray):
-        return idx
-    if isinstance(idx, jax.Array) and not isinstance(
-            idx, jax.core.Tracer):
-        return np.asarray(idx)
-    return None
-
-
-def _ap_segments(sidx, max_seg=8):
-    """Split sidx into maximal arithmetic-progression runs.
-
-    Batched BC index sets are concatenations of per-marker runs (each an AP
-    in the structured ordering), so a handful of segments covers them; each
-    segment then takes the slice / pad+add form.  Returns [(pos, len, (start, stride))] or
-    None when more than max_seg segments would be needed."""
-    n = sidx.size
-    if n < 2:
-        return None
-    d = np.diff(sidx)
-    segs = []
-    i = 0
-    while i < n:
-        if i == n - 1:
-            segs.append((i, 1, (int(sidx[i]), 1)))
-            break
-        st = d[i]
-        j = i + 1
-        while j < n - 1 and d[j] == st:
-            j += 1
-        if st <= 0:
-            return None
-        segs.append((i, j - i + 1, (int(sidx[i]), int(st))))
-        i = j + 1
-        if len(segs) > max_seg:
-            return None
-    return segs
-
-
-def _arith_prog(sidx):
-    """(start, stride) if sidx is a positive-stride arithmetic progression.
-
-    Marker vertex lists on structured(-as-unstructured) meshes are APs in
-    the node ordering: walls are contiguous runs (stride 1), inflow/
-    outflow columns sit at a fixed row stride."""
-    if sidx.size < 2:
-        return None
-    d = np.diff(sidx)
-    if d[0] > 0 and np.all(d == d[0]):
-        return int(sidx[0]), int(d[0])
-    return None
-
-
-
-
-def _rows_ap(x, ap, nb):
-    """x[start : start + nb*stride : stride] via simple slices, or None.
-
-    stride 1: one slice.  stride s with n % s == 0: view the node dim as
-    (n/s, s) and take a simple middle-dim slice (a strided lax.slice is
-    partitioned less well under GSPMD)."""
-    start, s = ap
-    if s == 1:
-        return jax.lax.slice_in_dim(x, start, start + nb, axis=0)
-    if s > 1 and x.shape[0] % s == 0:
-        r0, c0 = divmod(start, s)
-        x3 = x.reshape((x.shape[0] // s, s) + x.shape[1:])
-        out = jax.lax.slice_in_dim(
-            jax.lax.slice_in_dim(x3, r0, r0 + nb, axis=0),
-            c0, c0 + 1, axis=1)
-        return out.reshape((nb,) + x.shape[1:])
-    return None
 
 
 def rows(x: jax.Array, idx) -> jax.Array:
-    """x[idx] for float x of shape (n, ...) with a small static idx."""
-    sidx = _static_idx(idx)
-    if sidx is None or sidx.size == 0 or x.ndim == 0:
-        return x[idx]
-    ap = _arith_prog(sidx)
-    if ap is not None:
-        out = _rows_ap(x, ap, sidx.size)
-        if out is not None:
-            return out.reshape(sidx.shape + x.shape[1:])
-    segs = _ap_segments(sidx)
-    if segs is not None:
-        parts = [_rows_ap(x, sap, ln) for _, ln, sap in segs]
-        if all(p is not None for p in parts):
-            return jnp.concatenate(parts, axis=0).reshape(
-                sidx.shape + x.shape[1:])
+    """x[idx] for x of shape (n, ...) with a small idx."""
     return x[idx]
 
 
-def _pad_ap(ap, nb, n, vv):
-    """Zero-padded (n, ...) update carrying vv at the AP rows, or None.
-
-    An elementwise pad+add (unlike `.at[idx].add`, which lowers to
-    scatter-add) is partitioned by GSPMD without all-gathering the sharded
-    operand, and fuses with the consumer on a single device.  Strided APs
-    (stride s, n % s == 0) route through the (n/s, s) view so the pad stays
-    simple."""
-    start, s = ap
-    if s == 1:
-        pad = [(start, n - start - nb)] + [(0, 0)] * (vv.ndim - 1)
-        return jnp.pad(vv, pad)
-    if s > 1 and n % s == 0:
-        r0, c0 = divmod(start, s)
-        nr = n // s
-        vv3 = vv.reshape((nb, 1) + vv.shape[1:])
-        pad = [(r0, nr - r0 - nb), (c0, s - c0 - 1)] \
-            + [(0, 0)] * (vv.ndim - 1)
-        return jnp.pad(vv3, pad).reshape((n,) + vv.shape[1:])
-    return None
-
-
 def add_rows(dest: jax.Array, idx, vals: jax.Array) -> jax.Array:
-    """dest.at[idx].add(vals) for float dest (n, ...), small static idx."""
-    sidx = _static_idx(idx)
-    if sidx is None or sidx.size == 0:
-        return dest.at[idx].add(vals)
-    n = dest.shape[0]
-    isf = jnp.issubdtype(dest.dtype, jnp.floating)
-    ap = _arith_prog(sidx)
-    if ap is not None and isf:
-        vv = jnp.asarray(vals, dest.dtype).reshape(
-            (sidx.size,) + dest.shape[1:])
-        upd = _pad_ap(ap, sidx.size, n, vv)
-        if upd is not None:
-            return dest + upd
-    segs = _ap_segments(sidx) if isf else None
-    if segs is not None:
-        vv = jnp.asarray(vals, dest.dtype).reshape(
-            (sidx.size,) + dest.shape[1:])
-        upds = [_pad_ap(sap, ln, n,
-                        jax.lax.slice_in_dim(vv, pos, pos + ln, axis=0))
-                for pos, ln, sap in segs]
-        if all(u is not None for u in upds):
-            out = dest
-            for u in upds:
-                out = out + u
-            return out
+    """dest.at[idx].add(vals)."""
     return dest.at[idx].add(vals)
 
 
 def set_col_rows(dest: jax.Array, idx, col: int, vals: jax.Array) -> jax.Array:
-    """dest.at[idx, col].set(vals) for float dest (n, k), small static idx
-    (unique indices)."""
-    sidx = _static_idx(idx)
-    if sidx is None or sidx.size == 0:
-        return dest.at[idx, col].set(vals)
-    n = dest.shape[0]
-    ap = _arith_prog(sidx)
-    if ap is not None and ap[1] == 1:
-        return dest.at[ap[0]:ap[0] + sidx.size, col].set(
-            jnp.asarray(vals, dest.dtype))
+    """dest.at[idx, col].set(vals)."""
     return dest.at[idx, col].set(vals)
 
 
 def set_rows(dest: jax.Array, idx, vals: jax.Array) -> jax.Array:
-    """dest.at[idx].set(vals): zero the selected rows, then add.
-
-    Requires unique idx (true for marker vertex lists)."""
-    sidx = _static_idx(idx)
-    if sidx is None or sidx.size == 0:
-        return dest.at[idx].set(vals)
-    n = dest.shape[0]
-    ap = _arith_prog(sidx)
-    if ap is not None and ap[1] == 1:
-        vv = jnp.broadcast_to(
-            jnp.asarray(vals, dest.dtype), (sidx.size,) + dest.shape[1:])
-        return dest.at[ap[0]:ap[0] + sidx.size].set(vv)
+    """dest.at[idx].set(vals)."""
     return dest.at[idx].set(vals)

@@ -75,7 +75,7 @@ def ns_gradient_vars(lib: ChemLib, lay: Layout, v: jax.Array,
                      xs: jax.Array | None = None) -> jax.Array:
     """[T, u, v, (w), P, X_1..X_Ns] — NS gradient set with MOLE fractions
     (CReactiveNSSolver gradient routines, solver_direct_reactive.cpp:4784).
-    Pass precomputed mole fractions (fused node-state kernel) to skip the
+    Pass precomputed mole fractions (state.node_state) to skip the
     conversion."""
     if xs is None:
         xs = cl.molar_from_mass(lib, v[:, lay.YS:lay.YS + lay.ns])

@@ -8,8 +8,7 @@ parallel axis this physics has), and the jitted step runs as one SPMD
 program.  Cross-shard edge gathers at partition frontiers become XLA
 collectives (the GSPMD partitioner inserts them from the sharding
 annotations); psum-style reductions (min dt, RMS) fall out of the same
-propagation.  The pointwise node-state kernel runs per shard under
-shard_map (pallas/node_state.py).
+propagation.
 """
 
 from __future__ import annotations

@@ -90,6 +90,14 @@ _T_REF = 298.15
 
 LX, LY = 0.05, 0.015
 
+# mass fractions: the channel starts filled with a lean C4H6/O2 premix and
+# is fed a richer one (stoichiometric Y_C4H6 is 0.235), so every node mixes
+# two species and the inlet carries a composition gradient; both stay inert
+# at the 300 K inlet and wall temperature (test_mixture_inert_at_inlet_
+# temperature)
+FILL_MIX = {"C4H6": 0.05, "O2": 0.95}
+INLET_MIX = {"C4H6": 0.2, "O2": 0.8}
+
 # one-card and four-card sizes: 565,671 and 2,259,341 nodes
 SIZES = {"565k": (1201, 471), "2.26M": (2401, 941)}
 
@@ -123,9 +131,9 @@ def graded_channel(nx: int, ny: int, seed: int | None = 0,
 def mixture_states(lib, lay, n: int, seed: int = 0):
     """(u, t_guess, tke) float64 numpy: ``n`` seeded random mixtures of the
     library's species at 250-2500 K (Dirichlet mass fractions), with the
-    energy taken from the library's enthalpy splines.  Kernel checks use
-    them to cover the species mixing that the stand-in's pure-O2 flow does
-    not reach."""
+    energy taken from the library's enthalpy splines.  Node-state checks
+    use them to cover all nine species and temperatures that the stand-in's
+    cold two-species flow does not reach."""
     rng = np.random.default_rng(seed)
     ns = lay.ns
     ys = rng.dirichlet(np.full(ns, 0.5), n)
@@ -204,26 +212,27 @@ STOP
     return _write(out_dir, "library.txt", "\n".join(manifest) + "\n")
 
 
+def _fracs(mix: dict) -> str:
+    return ", ".join(repr(float(mix.get(name, 0.0))) for name in SPECIES_ORDER)
+
+
 def cfg_text(mesh_file: str = "mesh.su2", lib_file: str = "library.txt",
              niter: int = 50) -> str:
     """The flagship's physics, with the freestream pressure at the outlet
     pressure so that a cold start has no pressure transient."""
-    ns = len(SPECIES)
-    o2 = SPECIES_ORDER.index("O2")
-    fracs = ", ".join("1.0" if k == o2 else "0.0" for k in range(ns))
     return f"""% stand-in for the flagship PaSR jet combustor (su2_tpu.testcase)
 PHYSICAL_PROBLEM= REACTIVE_NAVIER_STOKES
 KIND_TURB_MODEL= SST
 CONFIG_LIB_FILE= {lib_file}
 SPECIES_ORDER= ({", ".join(SPECIES_ORDER)})
-FREESTREAM_MASS_FRAC= ({fracs})
+FREESTREAM_MASS_FRAC= ({_fracs(FILL_MIX)})
 MACH_NUMBER= 0.02
 FREESTREAM_TEMPERATURE= 300.0
 FREESTREAM_VELOCITY= (6.0, 0.0, 0.0)
 FREESTREAM_PRESSURE= 101325.0
 INLET_TYPE= TEMPERATURE_IMPOSE
 MARKER_INLET= ( inlet, 300.0, 6.0, 1.0, 0.0, 0.0 )
-INLET_MASS_FRAC= (inlet, {fracs})
+INLET_MASS_FRAC= (inlet, {_fracs(INLET_MIX)})
 MARKER_OUTLET= ( outlet, 101325.0 )
 MARKER_ISOTHERMAL= ( upper_wall, 300.0, lower_wall, 300.0 )
 MARKER_PLOTTING= ( lower_wall )

@@ -77,8 +77,8 @@ def test_multichip_real_combustion_case(combustion_dir):
 def test_sharded_step_uses_neighbor_collectives():
     """Structured-band sharding: the coupled step's neighbor traffic rides
     collective-permutes (roll slab exchanges — the ppermute halo of SURVEY
-    §2.3), not full-field all-gathers.  Boundary scatter-adds use pad+add
-    forms (ops/bgather.py) so none of them all-gather either."""
+    §2.3), not full-field all-gathers; the boundary section is shard-local
+    (solvers/bc_dense.py), so it adds none either."""
     import re
     import __graft_entry__ as g
 
@@ -159,29 +159,3 @@ def test_multichip_standin_case(standin_dir):
     # residual RMS rows: the transverse-momentum row is at roundoff level
     r1, r8 = np.asarray(o1[6]), np.asarray(o8[6])
     np.testing.assert_allclose(r8, r1, rtol=1e-9, atol=1e-12 * r1.max())
-
-
-def test_sharded_step_with_node_kernel(standin_dir):
-    """The node-state kernel runs per shard under shard_map inside the
-    sharded coupled step (interpreted here) and matches the XLA chain."""
-    import functools
-    import os
-    from su2_tpu.config import Config
-    from su2_tpu.driver import Simulation
-    from su2_tpu.pallas import node_state as nst
-
-    cfg = Config(os.path.join(standin_dir, "case.cfg"))
-    sim8 = Simulation(cfg, dtype=jnp.float64, ndevices=8)
-    args = (sim8.u0, sim8.t0, *sim8.initial_turb_state(), jnp.asarray(False))
-    ref = jax.jit(sim8._make_rans_step())(*args)
-    sim8.node_kernel = functools.partial(nst.node_state, mesh=sim8.dmesh,
-                                         interpret=True)
-    got = jax.jit(sim8._make_rans_step())(*args)
-    lay = sim8.lay
-    u_ref, u_got = np.asarray(ref[0]), np.asarray(got[0])
-    sc = np.abs(u_ref).max(axis=0)
-    sc[lay.RHOVX:lay.RHOVX + lay.ndim] = sc[lay.RHOVX:lay.RHOVX
-                                            + lay.ndim].max()
-    sc[sc == 0] = 1.0
-    np.testing.assert_array_less(np.abs(u_got - u_ref) / sc[None, :], 1e-11)
-    assert len(got[0].sharding.device_set) == 8

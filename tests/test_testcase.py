@@ -116,3 +116,24 @@ def test_mixture_states_are_consistent(standin_lib):
     np.testing.assert_allclose(np.asarray(e), u[:, lay.RHOE] / u[:, lay.RHO],
                                rtol=1e-8)
     np.testing.assert_allclose(np.asarray(ys).sum(1), 1.0, rtol=1e-12)
+
+
+def test_cfg_feeds_inert_premix(standin_dir, standin_lib):
+    """The channel starts with a lean C4H6/O2 premix and is fed a richer
+    one: two live species rows and an inlet composition gradient, both
+    frozen at the 300 K inlet temperature."""
+    cfg = Config(os.path.join(standin_dir, "case.cfg"))
+    sp = {s: i for i, s in enumerate(testcase.SPECIES_ORDER)}
+    fill = np.asarray(cfg.freestream_mass_frac)
+    inlet = np.asarray(cfg.inlet_mass_frac["inlet"])
+    for ys, mix in ((fill, testcase.FILL_MIX), (inlet, testcase.INLET_MIX)):
+        assert ys.sum() == pytest.approx(1.0)
+        assert set(np.flatnonzero(ys)) == {sp["C4H6"], sp["O2"]}
+        for name, y in mix.items():
+            assert ys[sp[name]] == pytest.approx(y)
+    assert inlet[sp["C4H6"]] > fill[sp["C4H6"]]
+    rf, _, _ = cl.reaction_rates(standin_lib, jnp.asarray([300.0, 2500.0]),
+                                 jnp.asarray([1.2, 0.2]),
+                                 jnp.asarray([inlet, inlet]))
+    rf = np.asarray(rf)
+    assert rf[0, 0] < 1e-15 * rf[1, 0]
